@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from wavelet_tpu.runtime import batching  # noqa: E402
-from wavelet_tpu_torch.kernels import haar_cuda  # noqa: E402
+from wavelet_tpu_torch.kernels import haar_cuda, pyramid_cuda  # noqa: E402
 from wavelet_tpu_torch.runtime import engine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -71,5 +71,66 @@ def test_engine_cuda_equals_cpu(cuda_device):
                                     items=items, n_valid=5)
         cb, t32 = eng.compress_shapebatch(batch, 0.999)
         outs.append((cb.data, t32, eng.decompress_shapebatch(cb).data))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("shape,scales", [((8, 64, 64, 64), 2),
+                                          ((4, 32, 64, 64), 3),
+                                          ((6, 8, 8, 8), 3),
+                                          ((3, 16, 8, 8), 1)])
+def test_pyramid_kernels_match_plain(cuda_device, shape, scales):
+    x = torch.from_numpy(_batch(shape, 3)).to(cuda_device)
+    c, mx, mn = pyramid_cuda.pyramid_forward(x, scales)
+    pc, pmx, pmn = pyramid_cuda.pyramid_forward_plain(x, scales)
+    np.testing.assert_array_equal(_bits(c), _bits(pc))
+    np.testing.assert_array_equal(_bits(mx), _bits(pmx))
+    np.testing.assert_array_equal(_bits(mn), _bits(pmn))
+    hc, hist = pyramid_cuda.forward_hist(x, scales)
+    np.testing.assert_array_equal(_bits(hc), _bits(pc))
+    np.testing.assert_array_equal(
+        hist.cpu().numpy(),
+        pyramid_cuda.forward_hist_plain(x, scales)[1].cpu().numpy())
+    np.testing.assert_array_equal(
+        _bits(pyramid_cuda.pyramid_inverse(c, scales)),
+        _bits(pyramid_cuda.pyramid_inverse_plain(c, scales)))
+
+
+@pytest.mark.parametrize("shape", [(3, 33, 17, 9), (5, 8, 4, 2),
+                                   (2, 1, 1, 1)])
+def test_forward_hist_odd_shapes_match_plain(cuda_device, shape):
+    x = torch.from_numpy(_batch(shape, 4)).to(cuda_device)
+    c, hist = pyramid_cuda.forward_hist(x, 1)
+    pc, phist = pyramid_cuda.forward_hist_plain(x, 1)
+    np.testing.assert_array_equal(_bits(c), _bits(pc))
+    np.testing.assert_array_equal(hist.cpu().numpy(), phist.cpu().numpy())
+
+
+def test_pyramid_launches_count(cuda_device):
+    before = dict(pyramid_cuda.launches)
+    x = torch.from_numpy(_batch((2, 8, 8, 8), 5)).to(cuda_device)
+    c, _, _ = pyramid_cuda.pyramid_forward(x, 2)
+    pyramid_cuda.forward_hist(x, 2)
+    pyramid_cuda.pyramid_inverse(c, 2)
+    for k in ("pyramid_forward", "forward_hist", "pyramid_inverse"):
+        assert pyramid_cuda.launches[k] == before[k] + 1
+
+
+@pytest.mark.parametrize("scales", [2, 3])
+def test_engine_scales_cuda_equals_cpu(cuda_device, scales):
+    dims = (16, 8, 8)
+    items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=b)
+             for b in range(5)]
+    data = np.zeros((6,) + dims, np.float32)
+    data[:5] = _batch((5,) + dims, 6)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        eng = engine.CodecEngine(device=dev, scales=scales)
+        batch = batching.ShapeBatch(shape=dims, data=data.copy(),
+                                    items=items, n_valid=5)
+        cb, t32 = eng.compress_shapebatch(batch, 0.999)
+        hb, hist = eng.forward_hist_shapebatch(batch)
+        outs.append((cb.data, t32, hb.data, hist,
+                     eng.decompress_shapebatch(cb).data))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))

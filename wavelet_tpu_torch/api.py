@@ -8,7 +8,9 @@
         keep=0.999, device="cuda")
     wavelet_tpu_torch.decompress("/archive", "/regen", device="cuda")
 
-Every other knob is a keyword named after its
+Global thresholds and pyramids take the JAX package's keyword names:
+``threshold_mode="global", keep_fraction=0.02, scales=2,
+global_cache_bytes=...``.  Every other knob is a keyword named after its
 :class:`~wavelet_tpu_torch.pipeline.common.Config` field; unknown names
 raise ``TypeError``.  Both return the pipeline's stats dict.
 """

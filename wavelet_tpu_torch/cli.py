@@ -1,17 +1,20 @@
 """Reference-compatible command line for the PyTorch port.
 
 Same ``key=value`` grammar as the C++ tool and ``wavelet_tpu.cli`` for the
-``-c`` / ``-d`` modes, plus one key, ``device=cuda|cpu`` (default
-``cuda``, which raises when CUDA is unavailable)::
+``-c`` / ``-d`` modes, with the JAX package's rules and messages for its
+extension keys, plus one key, ``device=cuda|cpu`` (default ``cuda``,
+which raises when CUDA is unavailable)::
 
     python -m wavelet_tpu_torch.cli datadir=... minfile=plt00074 \
         maxfile=plt00075 minlevel=0 maxlevel=1 components="temp pressure" \
         keep=0.999 compresseddir=out/ device=cuda -c
+    python -m wavelet_tpu_torch.cli ... thresholdmode=global \
+        keepfraction=0.02 scales=2 compresseddir=out2/ -c
     python -m wavelet_tpu_torch.cli compresseddir=out/ out=regen/ -d
 
 Modes and keys not yet ported (``-estimate``, ``-check``, ``-info``,
-global thresholds, ``scales>1``, sparse transfer, preview, multi-device and
-multi-process keys) raise ``NotImplementedError``.
+sparse transfer, preview, multi-device and multi-process keys) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,14 +40,18 @@ Modes (one required):
 
 Keys: device=cuda|cpu (default cuda)  payload=f32|q16  codec=xz|raw
       xzpreset=N  xzdelta=D  archive=files|bundle  prefetch=0|1  resume=1
+      scales=S (pyramid depth)  thresholdmode=box|global
+      keepfraction=F (global: keep this fraction of all coefficients;
+      keep= is then not needed)  globalcache=BYTES (global: host RAM for
+      pass-1 coefficients, default 4 GiB or WAVELET_TPU_GLOBALCACHE;
+      0 = always re-read)
 """
 
 # keys of wavelet_tpu.cli whose non-default values this port does not run
-_UNPORTED = {"thresholdmode": "box", "keepfraction": None, "scales": "1",
-             "transfer": "dense", "preview": "0", "devices": "1",
+_UNPORTED = {"transfer": "dense", "preview": "0", "devices": "1",
              "coordinator": None, "processes": None, "processid": None,
-             "giantbox": None, "giantmesh": "local", "globalcache": None,
-             "fastestimate": "0", "devicemetrics": "0", "profile": None}
+             "giantbox": None, "giantmesh": "local", "fastestimate": "0",
+             "devicemetrics": "0", "profile": None}
 
 
 def _kv(args):
@@ -84,6 +91,15 @@ def parse_argv(argv):
             raise SystemExit(f"Missing {key}!")
         return kv[key]
 
+    def globalcache_key():
+        if "globalcache" not in kv:
+            return None
+        v = int(kv["globalcache"])
+        if v < 0:
+            raise SystemExit(f"globalcache={kv['globalcache']} must be a "
+                             "non-negative byte count (0 disables)")
+        return v
+
     cfg = Config()
     cfg.device = kv.get("device", "cuda")
     if cfg.device not in ("cuda", "cpu"):
@@ -98,12 +114,32 @@ def parse_argv(argv):
         cfg.components = need("components").split()
         if not cfg.components:
             raise SystemExit("components= must name at least one component")
-        keeps = [float(v) for v in need("keep").split()]
-        if len(keeps) != 1:
-            raise SystemExit("keep= takes one value with -c")
-        cfg.keep = keeps[0]
-        cfg.compressed_dir = need("compresseddir")
         cfg.resume = kv.get("resume", "0") in ("1", "true", "yes")
+        cfg.scales = int(kv.get("scales", "1"))
+        cfg.global_cache_bytes = globalcache_key()
+        cfg.threshold_mode = kv.get("thresholdmode", "box")
+        if cfg.threshold_mode == "global":
+            fracs = [float(v) for v in need("keepfraction").split()]
+            if not fracs:
+                raise SystemExit("Missing keepfraction!")
+            if len(fracs) > 1:
+                raise SystemExit("keepfraction sweep (several values) is "
+                                 "only valid with -estimate")
+            cfg.keep_fraction = fracs[0]
+            if len(kv.get("keep", "0.999").split()) > 1:
+                raise SystemExit("keep sweep requires the box threshold "
+                                 "mode (global mode thresholds by "
+                                 "keepfraction)")
+            cfg.keep = float(kv.get("keep", "0.999"))
+        else:
+            keeps = [float(v) for v in need("keep").split()]
+            if not keeps:
+                raise SystemExit("Missing keep!")
+            if len(keeps) > 1:
+                raise SystemExit("keep sweep (several keep values) is only "
+                                 "valid with -estimate")
+            cfg.keep = keeps[0]
+        cfg.compressed_dir = need("compresseddir")
         cfg.payload = kv.get("payload", "f32")
         cfg.codec = kv.get("codec", "xz")
         cfg.xz_preset = int(kv.get("xzpreset", "6"))

@@ -21,6 +21,10 @@ arithmetic does not flush them (PyTorch keeps subnormals unless
 
 Tensors are ``[..., X, Y, Z]``; the C-order flatten of the trailing three
 axes is the reference's coefficient order (``compressor.cpp:178-181``).
+
+The multi-scale pyramid (an extension, ``scales=S``) re-transforms the
+low-low-low corner of the previous scale, as ``wavelet_tpu.core.haar``
+does.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["haar3d_forward", "haar3d_inverse", "forward_flat",
-           "inverse_from_flat"]
+           "inverse_from_flat", "haar3d_forward_multi",
+           "haar3d_inverse_multi"]
 
 
 def _fwd_last(x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +82,44 @@ def haar3d_inverse(c: torch.Tensor) -> torch.Tensor:
     c = _along(_inv_last, c, -2)   # Y  (decompressor.cpp:117-135)
     c = _along(_inv_last, c, -1)   # Z  (decompressor.cpp:138-156)
     return c.contiguous()
+
+
+def haar3d_forward_multi(x: torch.Tensor, scales: int) -> torch.Tensor:
+    """Multi-scale forward: scale s re-transforms the corner ``[X >> s,
+    Y >> s, Z >> s]`` that holds scale s-1's low band, with the same Z, Y,
+    X passes.  Scale 0 takes any dims (odd tails pass through); each
+    deeper scale's corner must have even dims."""
+    X, Y, Z = x.shape[-3:]
+    out = x
+    for s in range(scales):
+        cx, cy, cz = X >> s, Y >> s, Z >> s
+        if s and (cx % 2 or cy % 2 or cz % 2):
+            raise ValueError(
+                f"dims {(X, Y, Z)}: scale-{s} corner {(cx, cy, cz)} has "
+                f"odd extent — deeper scales need even corner dims "
+                f"(scale 0 alone tolerates odd axes)")
+        # haar3d_forward returns a fresh tensor, so the corner is read in
+        # full before it is overwritten
+        sub = haar3d_forward(out[..., :cx, :cy, :cz])
+        if s == 0:
+            out = sub
+        else:
+            out[..., :cx, :cy, :cz] = sub
+    return out
+
+
+def haar3d_inverse_multi(c: torch.Tensor, scales: int) -> torch.Tensor:
+    """Inverse of :func:`haar3d_forward_multi`, coarsest corner first."""
+    X, Y, Z = c.shape[-3:]
+    out = c.clone() if scales > 1 else c
+    for s in reversed(range(scales)):
+        cx, cy, cz = X >> s, Y >> s, Z >> s
+        sub = haar3d_inverse(out[..., :cx, :cy, :cz])
+        if s == 0:
+            out = sub
+        else:
+            out[..., :cx, :cy, :cz] = sub
+    return out
 
 
 def forward_flat(x: torch.Tensor) -> torch.Tensor:

@@ -65,15 +65,17 @@ def _lib_path(srcs) -> str:
 
 def _bind(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.wt_haar_forward_blocks.argtypes = [i32, i32, i32]
-    lib.wt_haar_forward_blocks.restype = ctypes.c_longlong
-    lib.wt_haar_forward.argtypes = [vp, vp, vp, vp, vp, vp,
-                                    i32, i32, i32, i32, vp]
-    lib.wt_haar_forward.restype = i32
-    lib.wt_haar_inverse.argtypes = [vp, vp, i32, i32, i32, i32, vp]
-    lib.wt_haar_inverse.restype = i32
     lib.wt_error_string.argtypes = [i32]
     lib.wt_error_string.restype = ctypes.c_char_p
+    for fn in (lib.wt_pyramid_scratch, lib.wt_pyramid_forward_parts):
+        fn.argtypes = [i32, i32, i32, i32]
+        fn.restype = ctypes.c_longlong
+    lib.wt_pyramid_forward.argtypes = [vp] * 7 + [i32] * 5 + [vp]
+    lib.wt_pyramid_forward.restype = i32
+    lib.wt_forward_hist.argtypes = [vp] * 4 + [i32] * 5 + [vp]
+    lib.wt_forward_hist.restype = i32
+    lib.wt_pyramid_inverse.argtypes = [vp] * 3 + [i32] * 5 + [vp]
+    lib.wt_pyramid_inverse.restype = i32
 
 
 def library():

@@ -6,8 +6,10 @@ launch counts.
 - :func:`fused_inverse` ``[N, X, Y, Z] -> [N, X, Y, Z]`` replaces
   ``haar_pallas.py:_fused_inverse_call``.
 
-The kernels are CUDA C++ (``wavelet_tpu_torch/csrc/haar.cu``), built by
-:mod:`wavelet_tpu_torch.kernels.build`.  A CUDA tensor launches the kernel
+The kernels are the one-scale case of the pyramid kernels in CUDA C++
+(``wavelet_tpu_torch/csrc/pyramid.cu``, ``scales=1``), built by
+:mod:`wavelet_tpu_torch.kernels.build`; :func:`_launch_forward` and
+:func:`_launch_inverse` launch them at any depth for both wrapper modules.  A CUDA tensor launches the kernel
 or raises; a CPU tensor goes to the plain PyTorch version below
 (:func:`fused_forward_plain` / :func:`fused_inverse_plain`), which is also
 what the kernels are held to on the card.  ``launches`` counts kernel
@@ -71,6 +73,51 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _scratch(lib, t: torch.Tensor, scales: int) -> torch.Tensor:
+    n, X, Y, Z = (int(d) for d in t.shape)
+    per_box = int(lib.wt_pyramid_scratch(X, Y, Z, scales))
+    return torch.empty(max(1, n * per_box), dtype=t.dtype, device=t.device)
+
+
+def _launch_forward(x: torch.Tensor, scales: int, what: str):
+    """Launch ``wt_pyramid_forward`` on a checked CUDA tensor: ->
+    ``(coeffs, max [N], min [N])``.  The caller counts the launch."""
+    from wavelet_tpu_torch.kernels import build
+
+    lib = build.library()
+    n, X, Y, Z = (int(d) for d in x.shape)
+    n_part = int(lib.wt_pyramid_forward_parts(X, Y, Z, scales))
+    c = torch.empty_like(x)
+    maxv = torch.empty(n, dtype=x.dtype, device=x.device)
+    minv = torch.empty(n, dtype=x.dtype, device=x.device)
+    part = torch.empty((2, n, n_part), dtype=x.dtype, device=x.device)
+    scratch = _scratch(lib, x, scales)
+    with torch.cuda.device(x.device):
+        err = lib.wt_pyramid_forward(
+            x.data_ptr(), c.data_ptr(), maxv.data_ptr(), minv.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), scratch.data_ptr(), n, X,
+            Y, Z, scales, _stream(x))
+    _raise_if(err, lib, what)
+    return c, maxv, minv
+
+
+def _launch_inverse(c: torch.Tensor, scales: int, what: str) -> torch.Tensor:
+    """Launch ``wt_pyramid_inverse`` on a checked CUDA tensor; the caller
+    counts the launch."""
+    from wavelet_tpu_torch.kernels import build
+
+    lib = build.library()
+    n, X, Y, Z = (int(d) for d in c.shape)
+    out = torch.empty_like(c)
+    scratch = _scratch(lib, c, scales)
+    with torch.cuda.device(c.device):
+        err = lib.wt_pyramid_inverse(c.data_ptr(), out.data_ptr(),
+                                     scratch.data_ptr(), n, X, Y, Z, scales,
+                                     _stream(c))
+    _raise_if(err, lib, what)
+    return out
+
+
 def fused_forward(x: torch.Tensor):
     """``[N, X, Y, Z]`` f32 -> ``(coeffs [N, X, Y, Z], max [N], min [N])``.
 
@@ -80,22 +127,9 @@ def fused_forward(x: torch.Tensor):
     _check(x, "fused_forward")
     if x.device.type == "cpu":
         return fused_forward_plain(x)
-    from wavelet_tpu_torch.kernels import build
-
-    lib = build.library()
-    n, X, Y, Z = (int(d) for d in x.shape)
-    n_part = int(lib.wt_haar_forward_blocks(X, Y, Z))
-    c = torch.empty_like(x)
-    maxv = torch.empty(n, dtype=x.dtype, device=x.device)
-    minv = torch.empty(n, dtype=x.dtype, device=x.device)
-    part = torch.empty((2, n, n_part), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.wt_haar_forward(x.data_ptr(), c.data_ptr(), maxv.data_ptr(),
-                                  minv.data_ptr(), part[0].data_ptr(),
-                                  part[1].data_ptr(), n, X, Y, Z, _stream(x))
-    _raise_if(err, lib, "haar_forward")
+    out = _launch_forward(x, 1, "haar_forward")
     launches["haar_forward"] += 1
-    return c, maxv, minv
+    return out
 
 
 def fused_inverse(c: torch.Tensor) -> torch.Tensor:
@@ -103,14 +137,6 @@ def fused_inverse(c: torch.Tensor) -> torch.Tensor:
     _check(c, "fused_inverse")
     if c.device.type == "cpu":
         return fused_inverse_plain(c)
-    from wavelet_tpu_torch.kernels import build
-
-    lib = build.library()
-    n, X, Y, Z = (int(d) for d in c.shape)
-    out = torch.empty_like(c)
-    with torch.cuda.device(c.device):
-        err = lib.wt_haar_inverse(c.data_ptr(), out.data_ptr(), n, X, Y, Z,
-                                  _stream(c))
-    _raise_if(err, lib, "haar_inverse")
+    out = _launch_inverse(c, 1, "haar_inverse")
     launches["haar_inverse"] += 1
     return out

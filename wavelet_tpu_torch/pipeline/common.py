@@ -23,9 +23,9 @@ __all__ = ["Config", "clean_string", "format_files", "format_levels",
 @dataclass
 class Config:
     """Reference ``Config`` (argparse.h:7-16) plus the extension keys the
-    port runs.  The JAX package's other keys (global thresholds,
-    ``scales``, ``transfer``, ``preview``, ...) are not ported: the port
-    always runs box thresholds, scales=1 and dense transfer."""
+    port runs, under the JAX package's names.  Its other keys
+    (``transfer``, ``preview``, multi-device and estimate keys, ...) are
+    not ported: the port always runs dense transfer on one device."""
 
     data_dir: str = ""
     min_time: str = ""
@@ -36,6 +36,14 @@ class Config:
     keep: float = 0.999
     compressed_dir: str = ""
     out_dir: str = ""
+    threshold_mode: str = "box"       # "box" (parity) | "global" (quantile)
+    keep_fraction: float | None = None  # global mode: fraction of all
+                                      #   coefficients to keep
+    scales: int = 1                   # wavelet scales (1 = reference parity)
+    global_cache_bytes: int | None = None  # global mode: host RAM budget
+                                      #   for pass-1 coefficients (None =
+                                      #   4 GiB, or WAVELET_TPU_GLOBALCACHE;
+                                      #   0 = re-read every timestep)
     resume: bool = False              # skip already-written outputs
     payload: str = "f32"              # "f32" (parity) | "q16" (quantized)
     codec: str = "xz"                 # "xz" (parity) | "raw"

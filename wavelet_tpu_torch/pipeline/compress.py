@@ -1,18 +1,24 @@
 """Compression pipeline on PyTorch (reference: ``compress(Config)``,
 modes.cpp:24-112).
 
-Counterpart of ``wavelet_tpu.pipeline.compress`` for the main path:
+Counterpart of ``wavelet_tpu.pipeline.compress`` for one device and dense
+transfer:
 
   1. host: discover files, parse headers + Cell_H box lists, write the
      five sidecar files first (the archive is then resumable state);
   2. streaming loop, one timestep at a time: read FAB boxes
      (io/plotfile), shape-bucketed batches through the device codec
-     (fused Haar + max/min -> exact per-box thresholds, runtime/engine),
-     host RLE + serialize + xz in the packer, then free.  The device works
-     on batch i+1 while one pack thread runs batch i.
+     (Haar transform or ``scales``-deep pyramid + max/min -> exact per-box
+     thresholds, runtime/engine), host RLE + serialize + xz in the packer,
+     then free.  The device works on batch i+1 while one pack thread runs
+     batch i.
 
-Box thresholds, scales=1 and dense transfer only: the JAX package's other
-modes are not ported (the CLI raises ``NotImplementedError`` for them).
+``thresholdmode=global`` streams twice: pass 1 sums the coefficient
+magnitude histogram of every item (keeping whole timesteps' coefficients
+in host RAM up to the ``globalcache`` budget), one threshold keeps
+``keep_fraction`` of all coefficients, and pass 2 packs at that threshold,
+re-reading the timesteps pass 1 did not keep.  The JAX package's other
+modes (sparse transfer, multi-device, multi-process) are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 from wavelet_tpu.io import archive, plotfile
 from wavelet_tpu.runtime import batching
 from wavelet_tpu.runtime.debug import phase_timer
+from wavelet_tpu_torch.core import threshold
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
 
@@ -86,28 +93,30 @@ def _have_index(out_dir: str, archive_format: str):
     return set(bundle_mod.BundleSet(out_dir).keys())
 
 
-def _pack_dense(batches, eng, packer, out_dir: str, keep: float,
-                stats: dict) -> None:
-    """The overlapped device-codec + host-pack loop: the device transforms
-    batch i+1 while a pack thread runs the host RLE+xz+write of batch i.
-    One pack worker keeps bundle member order deterministic.  Adds to
-    ``stats``: files, bytes, and the seconds spent in the device step
-    (H2D, kernel, D2H, thresholds) and waiting on the pack thread."""
+def _pack_overlapped(batches, device_step, packer, out_dir: str,
+                     stats: dict) -> None:
+    """The overlapped device-codec + host-pack loop: the device step of
+    batch i+1 runs while a pack thread runs the host RLE+xz+write of batch
+    i.  ``device_step(batch) -> (coeff batch, t32, subset)``; ``subset``
+    (None = all) names the items to pack.  One pack worker keeps bundle
+    member order deterministic.  Adds to ``stats``: files, bytes, and the
+    seconds spent in the device step (H2D, kernels, D2H, thresholds) and
+    waiting on the pack thread."""
     with cf.ThreadPoolExecutor(1) as pack_pool:
         pending = None
         for batch in batches:
             t0 = time.perf_counter()
-            coeffs, t32 = eng.compress_shapebatch(batch, keep)
+            coeffs, t32, subset = device_step(batch)
             t1 = time.perf_counter()
             if pending is not None:
                 stats["output_bytes"] += pending.result()
             stats["device_seconds"] += t1 - t0
             stats["pack_wait_seconds"] += time.perf_counter() - t1
-            pending = pack_pool.submit(packer.pack, out_dir, coeffs, t32)
-            stats["device_to_host_bytes"] += coeffs.data.nbytes
-            stats["files"] += len(batch.items)
-            stats["input_bytes"] += (len(batch.items) *
-                                     int(np.prod(batch.shape)) * 4)
+            pending = pack_pool.submit(packer.pack, out_dir, coeffs, t32,
+                                       subset)
+            n_packed = len(batch.items) if subset is None else len(subset)
+            stats["files"] += n_packed
+            stats["input_bytes"] += n_packed * int(np.prod(batch.shape)) * 4
         if pending is not None:
             t1 = time.perf_counter()
             stats["output_bytes"] += pending.result()
@@ -141,11 +150,83 @@ def _iter_prefetched(n_times: int, read_one, depth: int):
             yield t, cur
 
 
+def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
+                     have, timestep_batches, stats: dict) -> int:
+    """The two global-threshold passes; returns the bundle bytes closed.
+
+    Pass 1 covers every item, also on resume: the histogram, and so the
+    threshold, must be the one a fresh run derives.  Whole timesteps'
+    coefficients stay in host RAM while the budget lasts (all or nothing
+    per timestep, in order); past it, pass 1 fetches only the histogram
+    and pass 2 re-reads and re-transforms the timestep."""
+    n_times = len(meta.files)
+    budget = (int(cfg.global_cache_bytes)
+              if cfg.global_cache_bytes is not None
+              else int(os.environ.get("WAVELET_TPU_GLOBALCACHE", 4 << 30)))
+    cache: dict = {}        # t -> coefficient ShapeBatches
+    cache_used = 0
+    hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
+    for t, batches in _iter_prefetched(
+            n_times, lambda t: timestep_batches(t, False), cfg.prefetch):
+        t_bytes = sum(b.data.nbytes for b in batches)
+        keep_t = cache_used + t_bytes <= budget
+        cbs = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            cb, h = eng.forward_hist_shapebatch(batch, fetch_coeffs=keep_t)
+            stats["device_seconds"] += time.perf_counter() - t0
+            hist += h
+            if keep_t:
+                cbs.append(cb)
+                stats["device_to_host_bytes"] += cb.data.nbytes
+        if keep_t and batches:
+            cache[t] = cbs
+            cache_used += t_bytes
+    if cache or budget:
+        log.info("globalcache: retained %d/%d timesteps' coefficients "
+                 "(%.2f of %.2f GiB budget); pass 2 re-reads the rest",
+                 len(cache), n_times, cache_used / 2**30, budget / 2**30)
+    stats["global_cached_timesteps"] = len(cache)
+    tval = threshold.threshold_from_histogram(hist, cfg.keep_fraction)
+    log.info("Global magnitude threshold (keep_fraction=%s): %s",
+             cfg.keep_fraction, tval)
+    stats["global_threshold"] = float(tval)
+
+    def pass2_batches(t):
+        """Cached coefficient batches, or a re-read (popping frees each
+        cached timestep as soon as it is consumed)."""
+        cached = cache.pop(t, None)
+        if cached is not None:
+            return cached, True
+        return timestep_batches(t, False), False
+
+    bundle_bytes = 0
+    for t, (batches, is_coeff) in _iter_prefetched(n_times, pass2_batches,
+                                                   cfg.prefetch):
+        def step(batch, is_coeff=is_coeff):
+            cb = batch
+            if not is_coeff:
+                cb = eng.forward_hist_shapebatch(batch)[0]
+                stats["device_to_host_bytes"] += cb.data.nbytes
+            subset = None
+            if cfg.resume:
+                subset = [i for i, it in enumerate(cb.items)
+                          if not _exists(cfg.compressed_dir, it, have)]
+                stats["skipped"] += len(cb.items) - len(subset)
+                if len(subset) == len(cb.items):
+                    subset = None
+            return cb, np.full(len(cb.items), tval, np.float32), subset
+
+        _pack_overlapped(batches, step, packer, cfg.compressed_dir, stats)
+        bundle_bytes += packer.close_bundles(t)
+    return bundle_bytes
+
+
 def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
     """One-timestep-at-a-time compression: read -> device codec -> host
     pack -> free.  Peak host memory is bounded by one timestep (two with
-    ``prefetch=1``)."""
-    eng = engine.CodecEngine(device=cfg.device)
+    ``prefetch=1``), plus the ``globalcache`` budget in global mode."""
+    eng = engine.CodecEngine(device=cfg.device, scales=cfg.scales)
     packer = engine.HostPacker(payload=cfg.payload, codec=cfg.codec,
                                xz_preset=cfg.xz_preset,
                                xz_delta=cfg.xz_delta,
@@ -158,13 +239,14 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
     stats.update(dict.fromkeys(("read_seconds", "device_seconds",
                                 "pack_wait_seconds"), 0.0))
 
-    def timestep_batches(t):
-        """Read timestep t and plan its batches (data freed with them)."""
+    def timestep_batches(t, resume_filter: bool):
+        """Read timestep t and plan its batches (data freed with them);
+        ``resume_filter`` drops the items already in the archive."""
         t0 = time.perf_counter()
         lv_boxes = [plotfile.read_level(meta.files[t], lev, meta.comp_idxs)
                     for lev in meta.levels]
         items = list(_iter_timestep_items(meta, t, lv_boxes))
-        if cfg.resume:
+        if resume_filter:
             kept = [p for p in items
                     if not _exists(cfg.compressed_dir, p[0], have)]
             stats["skipped"] += len(items) - len(kept)
@@ -174,14 +256,24 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
         stats["read_seconds"] += time.perf_counter() - t0
         return batches
 
-    bundle_bytes = 0
-    for t, batches in _iter_prefetched(len(meta.files), timestep_batches,
-                                       cfg.prefetch):
-        _pack_dense(batches, eng, packer, cfg.compressed_dir, cfg.keep,
-                    stats)
-        # a finished timestep's bundle is closed right away: a crash costs
-        # one timestep, like the per-file mode
-        bundle_bytes += packer.close_bundles(t)
+    def box_step(batch):
+        coeffs, t32 = eng.compress_shapebatch(batch, cfg.keep)
+        stats["device_to_host_bytes"] += coeffs.data.nbytes
+        return coeffs, t32, None
+
+    if cfg.threshold_mode == "global":
+        bundle_bytes = _compress_global(cfg, meta, eng, packer, have,
+                                        timestep_batches, stats)
+    else:
+        bundle_bytes = 0
+        for t, batches in _iter_prefetched(
+                len(meta.files), lambda t: timestep_batches(t, cfg.resume),
+                cfg.prefetch):
+            _pack_overlapped(batches, box_step, packer, cfg.compressed_dir,
+                             stats)
+            # a finished timestep's bundle is closed right away: a crash
+            # costs one timestep, like the per-file mode
+            bundle_bytes += packer.close_bundles(t)
     if stats["skipped"]:
         log.info("Resume: skipped %d already-compressed items",
                  stats["skipped"])
@@ -194,6 +286,8 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
 def compress_run(cfg: common.Config) -> dict:
     """Full compression mode (modes.cpp:24-112), streaming per timestep."""
     engine.resolve_device(cfg.device)   # fail before touching the archive
+    if cfg.threshold_mode == "global" and cfg.keep_fraction is None:
+        raise ValueError("global threshold mode requires keep_fraction")
     files = common.format_files(cfg.data_dir, cfg.min_time, cfg.max_time)
     levels = common.format_levels(cfg.min_level, cfg.max_level)
     log.info("This run involves the following files:")
@@ -209,8 +303,10 @@ def compress_run(cfg: common.Config) -> dict:
         os.makedirs(cfg.compressed_dir, exist_ok=True)
         write_sidecars_meta(meta, cfg.min_level, cfg.max_level,
                             cfg.compressed_dir)
-        archive.write_meta(cfg.compressed_dir, keep=cfg.keep,
-                           payload=cfg.payload,
+        archive.write_meta(cfg.compressed_dir,
+                           threshold_mode=cfg.threshold_mode,
+                           keep=cfg.keep, keep_fraction=cfg.keep_fraction,
+                           scales=cfg.scales, payload=cfg.payload,
                            codec=cfg.codec, xz_preset=cfg.xz_preset,
                            xz_delta=cfg.xz_delta,
                            archive_format=cfg.archive)

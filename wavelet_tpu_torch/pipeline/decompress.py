@@ -10,9 +10,10 @@ Counterpart of ``wavelet_tpu.pipeline.decompress`` for the main path:
      device inverse Haar per shape bucket, then regenerate that timestep's
      plotfile byte-identically (io/plotfile.write_plotfile) and free.
 
-Partial retrieval (timestep window, component subset, level prefix) is
-ported; preview and sparse transfer are not, and an archive written with
-``scales>1`` raises ``NotImplementedError``.
+Partial retrieval (timestep window, component subset, level prefix) and
+``scales>1`` archives are ported (each box shape takes the pyramid depth
+``eff_scales`` derives from its dims and the archive's ``scales``, as in
+compression); preview and sparse transfer are not.
 """
 
 from __future__ import annotations
@@ -138,10 +139,6 @@ def iter_decompressed_timesteps(cfg: common.Config, stats=None):
             amrex.geomcellinfo, [rr[0]] * 3, amrex.true_times,
             amrex.level_steps, amrex.x_dim, amrex.y_dim, amrex.z_dim)
     meta = archive.read_meta(cfg.compressed_dir)
-    if meta.get("scales", 1) != 1:
-        raise NotImplementedError(
-            f"archive has scales={meta.get('scales')}: multi-scale "
-            "decompression is not yet ported")
 
     # --- selection (defaults = everything, the reference behavior) ------
     levels = full_levels
@@ -191,7 +188,8 @@ def iter_decompressed_timesteps(cfg: common.Config, stats=None):
     packer = engine.HostPacker(payload=meta.get("payload", "f32"),
                                codec=meta.get("codec", "xz"),
                                archive_format=meta.get("archive", "files"))
-    eng = engine.CodecEngine(device=cfg.device)
+    eng = engine.CodecEngine(device=cfg.device,
+                             scales=meta.get("scales", 1))
     arena = batching.BufferArena()   # same shape buckets recur every step
     if stats is None:
         stats = {}

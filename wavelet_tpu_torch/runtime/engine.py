@@ -1,13 +1,20 @@
 """The device codec engine on PyTorch: compress/decompress steps over
 shape-bucketed batches, and the parallel host packer.
 
-Counterpart of ``wavelet_tpu.runtime.engine`` for the main path: box
-thresholds, ``scales=1``, dense transfer, one device.  Coefficients use the
-``halves`` layout (the reference's order), one box per batch row
-(``pack=1``): on the card one thread per 2x2x2 cell writes that layout with
-coalesced stores, so the TPU's interleaved layout and lane packing buy
-nothing here.  Branches outside this slice raise ``NotImplementedError``;
-none falls back to another path.
+Counterpart of ``wavelet_tpu.runtime.engine`` for one device and dense
+transfer: box thresholds and the global-threshold histogram pass, on
+single-scale transforms or ``scales``-deep pyramids.  Coefficients use the
+``halves`` layout (the reference's order, the pyramid in logical order),
+one box per batch row (``pack=1``): on the card one thread per 2x2x2 cell
+writes that layout with coalesced stores, so the TPU's interleaved layout
+and lane packing buy nothing here.  Branches outside the port raise
+``NotImplementedError``; none falls back to another path.
+
+Kernels per shape, with ``eff = eff_scales(shape)``: box mode runs
+``haar_cuda.fused_forward`` at eff = 1 and ``pyramid_cuda.pyramid_forward``
+deeper; the global pass runs ``pyramid_cuda.forward_hist`` at every eff;
+decompression runs ``haar_cuda.fused_inverse`` or
+``pyramid_cuda.pyramid_inverse``.
 
 ``resolve_signed_absmax`` and ``HostPacker`` are jax-free copies of the JAX
 package's (the originals live in a module that imports jax at the top).
@@ -27,7 +34,7 @@ from wavelet_tpu.core import rle
 from wavelet_tpu.io import archive, bundle
 from wavelet_tpu.runtime.batching import ShapeBatch
 from wavelet_tpu_torch.core import threshold
-from wavelet_tpu_torch.kernels import haar_cuda
+from wavelet_tpu_torch.kernels import haar_cuda, pyramid_cuda
 
 __all__ = ["CodecEngine", "HostPacker", "resolve_signed_absmax",
            "resolve_device"]
@@ -72,14 +79,22 @@ class CodecEngine:
     """Runs the device side of the codec over ShapeBatches on ``device``.
 
     On a CUDA device the transforms are the hand-written kernels of
-    ``kernels/haar_cuda.py``; on the CPU, their plain PyTorch versions —
-    bitwise the same results."""
+    ``kernels/haar_cuda.py`` and ``kernels/pyramid_cuda.py``; on the CPU,
+    their plain PyTorch versions — bitwise the same results."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", scales: int = 1):
         self.device = resolve_device(device)
+        self.scales = int(scales)
 
     def eff_scales(self, dims) -> int:
-        return 1
+        """Deepest pyramid this box shape supports, capped at the requested
+        ``scales``: every dim must divide by ``2**eff``.  AMR runs mix box
+        sizes (an (8, 4, 2) box takes one scale); decompression derives the
+        same value from dims and the archive's ``scales``."""
+        s = self.scales
+        while s > 1 and any(int(d) % (1 << s) for d in dims):
+            s -= 1
+        return s
 
     def coeff_layout(self, dims) -> str:
         return "halves"
@@ -100,7 +115,11 @@ class CodecEngine:
 
     def _forward(self, data: np.ndarray):
         """-> (coeffs [N, X, Y, Z] on the host, signed absmax [N])."""
-        c, maxv, minv = haar_cuda.fused_forward(self._put(data))
+        eff = self.eff_scales(data.shape[1:])
+        if eff > 1:
+            c, maxv, minv = pyramid_cuda.pyramid_forward(self._put(data), eff)
+        else:
+            c, maxv, minv = haar_cuda.fused_forward(self._put(data))
         coeffs = self._host(c)
         flat = coeffs.reshape(coeffs.shape[0], -1)
         signed = resolve_signed_absmax(self._host(maxv), self._host(minv),
@@ -126,25 +145,64 @@ class CodecEngine:
         return (dataclasses.replace(batch, data=coeffs),
                 threshold.exact_threshold32(signed, keep))
 
+    def _forward_hist(self, data: np.ndarray):
+        """-> (coeffs [N, X, Y, Z] on the device, int64 histogram of the
+        whole batch on the host)."""
+        eff = max(1, self.eff_scales(data.shape[1:]))
+        c, hist = pyramid_cuda.forward_hist(self._put(data), eff)
+        return c, self._host(hist)
+
+    def forward_hist_shapebatch(self, batch: ShapeBatch,
+                                fetch_coeffs: bool = True):
+        """Global-threshold pass: -> (coefficient ShapeBatch, int64
+        histogram of the real items).  ``fetch_coeffs=False`` returns
+        ``(None, hist)`` and moves no coefficient to the host."""
+        self._check_batch(batch)
+        c, hist = self._forward_hist(batch.data)
+        # padding slots are zero boxes: take their coefficients out of the
+        # zero bin so the quantile counts real coefficients only
+        n_pad = batch.data.shape[0] - batch.n_valid
+        hist[0] -= n_pad * int(np.prod(batch.shape))
+        if not fetch_coeffs:
+            return None, hist
+        return dataclasses.replace(batch, data=self._host(c)), hist
+
+    def forward_hist_batch(self, data: np.ndarray, n_pad_rows: int = 0):
+        """-> (flat [N, XYZ], int64 histogram); ``n_pad_rows`` all-zero
+        padding rows are taken out of the zero bin."""
+        c, hist = self._forward_hist(np.asarray(data, np.float32))
+        flat = self._host(c).reshape(c.shape[0], -1)
+        hist[0] -= n_pad_rows * flat.shape[1]
+        return flat, hist
+
+    def _inverse(self, blocks: np.ndarray) -> np.ndarray:
+        eff = self.eff_scales(blocks.shape[1:])
+        if eff > 1:
+            out = pyramid_cuda.pyramid_inverse(self._put(blocks), eff)
+        else:
+            out = haar_cuda.fused_inverse(self._put(blocks))
+        return self._host(out)
+
     def decompress_shapebatch(self, coeff_batch: ShapeBatch) -> ShapeBatch:
         """Coefficients -> reconstructed boxes, same geometry."""
         self._check_batch(coeff_batch)
-        out = haar_cuda.fused_inverse(self._put(coeff_batch.data))
-        return dataclasses.replace(coeff_batch, data=self._host(out))
+        return dataclasses.replace(coeff_batch,
+                                   data=self._inverse(coeff_batch.data))
 
     def decompress_batch(self, flat: np.ndarray, dims) -> np.ndarray:
         """flat f32 [N, X*Y*Z] -> boxes f32 [N, X, Y, Z]."""
         dims = tuple(int(d) for d in dims)
-        blocks = np.asarray(flat, np.float32).reshape((-1,) + dims)
-        return self._host(haar_cuda.fused_inverse(self._put(blocks)))
+        return self._inverse(np.asarray(flat, np.float32).reshape(
+            (-1,) + dims))
 
-    @staticmethod
-    def _check_batch(batch: ShapeBatch) -> None:
-        if batch.pack != 1 or batch.layout != "halves" or batch.scales != 1:
+    def _check_batch(self, batch: ShapeBatch) -> None:
+        # spatial batches carry scales=1, coefficient batches eff_scales
+        if (batch.pack != 1 or batch.layout != "halves"
+                or batch.scales not in (1, self.eff_scales(batch.shape))):
             raise NotImplementedError(
                 f"batch geometry pack={batch.pack} layout={batch.layout!r} "
                 f"scales={batch.scales} is not ported (pack=1, halves, "
-                "scales=1 only)")
+                "scales=1 or eff_scales(shape) only)")
 
 
 def _atomic_write(path: str, blob: bytes) -> None:
