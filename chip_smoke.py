@@ -16,7 +16,11 @@ Phases (any failure exits non-zero before the last line):
    zero extremum may come back as +0.0 from one and -0.0 from the other.
    The sign of a zero extremum cannot change ``|c| > t32`` (the threshold
    is then +-0 and no magnitude is below zero), so it cannot change an
-   archive byte.
+   archive byte.  The compaction (``compact_count`` + ``compact_scatter``)
+   against its plain version, counts and the first ``count`` pairs
+   bitwise: rows of 1 to 64^3 elements with NaN, +-inf, signed zeros,
+   subnormals and thresholds negative, -0, +inf and NaN, and the main
+   path's [160, 262144] coefficient rows at the dataset's kept fraction.
 5. End to end: a synthetic AMR run (2 timesteps, 2 levels, 4 components,
    ~168 MiB of f32 boxes per timestep, f64 FABs on disk) compressed and
    decompressed with ``device=cuda`` through the pipelines the CLI calls
@@ -25,13 +29,20 @@ Phases (any failure exits non-zero before the last line):
    path (box thresholds, keep=0.999, one scale), (b) ``scales=2`` on the
    first timestep only (to keep the script's time down; one timestep
    holds every box shape), (c) ``thresholdmode=global keepfraction=0.02
-   scales=2``.  Each archive and each set of regenerated
+   scales=2``, (d) (b) with ``transfer=sparse`` on ``-c`` and ``-d``.
+   Each archive and each set of regenerated
    plotfiles must be byte-identical to the same run with ``device=cpu``
    (the plain path, which the CPU tests hold bitwise to the JAX package),
    each path's kernels must have been launched in its run (the counts are
    set to 0 just before and read just after), and the output must be
-   finite and close to the input.  Kernel and plain-version times are
-   taken with CUDA events at the main path's 64^3 batch.
+   finite and close to the input.  (d)'s archive and plotfiles must also
+   be (b)'s, with fewer bytes over the link both ways; and (c)'s archive
+   decompressed with ``transfer=sparse`` must give (c)'s plotfiles.
+6. Timing: kernel and plain-version times with CUDA events at the main
+   path's 64^3 batch (the compaction on its coefficient rows), each
+   kernel's bound (its inputs read once and outputs written once at 3.35
+   TB/s), the link rate, and the two sparse-transfer stage rates that set
+   ``transfer=auto``'s breakevens.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,22 +67,30 @@ CHECK_SHAPES = [(32, 64, 64, 64), (4, 32, 64, 64), (3, 33, 17, 9),
                 (2, 1, 1, 1), (5, 8, 4, 2)]
 TIME_SHAPE = (160, 64, 64, 64)   # the main path's 64^3 bucket per timestep
 TIME_SCALES = 2
-# (name, extra CLI keys, timesteps, kernels the path must launch, bound on
-# the reconstruction error: "range" = max |x - x'| / the box's range, or
-# "threshold" = max |x - x'| / the global threshold, which is at most
-# 7 * scales + 1: each point sums one coefficient per band of its cell at
-# every scale, and each dropped one is at most the threshold)
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, data sheet
+# (name, extra -c keys, extra -d keys, timesteps, kernels the path must
+# launch, bound on the reconstruction error, the configuration whose
+# device=cuda archive and plotfiles this one must equal).  The bound is
+# "range" = max |x - x'| / the box's range, or "threshold" = max |x - x'|
+# / the global threshold, which is at most 7 * scales + 1: each point sums
+# one coefficient per band of its cell at every scale, and each dropped one
+# is at most the threshold.
+PYRAMID_PATH = ("haar_forward", "haar_inverse", "pyramid_forward",
+                "pyramid_inverse")
 CONFIGS = [
-    ("a", [f"keep={KEEP}"], TIMESTEPS, ("haar_forward", "haar_inverse"),
-     ("range", 0.01)),
-    ("b", [f"keep={KEEP}", "scales=2"], TIMESTEPS[:1],
-     ("haar_forward", "haar_inverse", "pyramid_forward", "pyramid_inverse"),
-     ("range", 0.02)),
-    ("c", ["thresholdmode=global", "keepfraction=0.02", "scales=2"],
+    ("a", [f"keep={KEEP}"], [], TIMESTEPS, ("haar_forward", "haar_inverse"),
+     ("range", 0.01), None),
+    ("b", [f"keep={KEEP}", "scales=2"], [], TIMESTEPS[:1], PYRAMID_PATH,
+     ("range", 0.02), None),
+    ("c", ["thresholdmode=global", "keepfraction=0.02", "scales=2"], [],
      TIMESTEPS, ("forward_hist", "haar_inverse", "pyramid_inverse"),
-     ("threshold", 7 * 2 + 1)),
+     ("threshold", 7 * 2 + 1), None),
+    ("d", [f"keep={KEEP}", "scales=2", "transfer=sparse"],
+     ["transfer=sparse"], TIMESTEPS[:1],
+     PYRAMID_PATH + ("compact_count", "compact_scatter"), ("range", 0.02),
+     "b"),
 ]
-# TPU kernel each port kernel replaces, and its source in the port (the
+# TPU kernel(s) each port kernel replaces, and its source in the port (the
 # single-scale kernels are the pyramid kernels at scales=1)
 KERNELS = {
     "haar_forward": ("wavelet_tpu/kernels/haar_pallas.py:172",
@@ -84,6 +103,11 @@ KERNELS = {
                      "wavelet_tpu_torch/csrc/pyramid.cu"),
     "pyramid_inverse": ("wavelet_tpu/kernels/haar_pallas.py:643",
                         "wavelet_tpu_torch/csrc/pyramid.cu"),
+    "compact_count": ("wavelet_tpu/kernels/compact_pallas.py:196 (K8) and "
+                      "wavelet_tpu/kernels/compact_pallas.py:344 (K10)",
+                      "wavelet_tpu_torch/csrc/compact.cu"),
+    "compact_scatter": ("wavelet_tpu/kernels/compact_pallas.py:484 (K9)",
+                        "wavelet_tpu_torch/csrc/compact.cu"),
 }
 
 
@@ -285,6 +309,116 @@ def phase_pyramid_kernels(device) -> dict:
     return err
 
 
+def _compact_edge_cases(device):
+    """(name, flat, t32, cap) cases for the compaction, from numpy seeds:
+    each row set holds a ~1% row, a row past the cap, NaN and +-inf,
+    zeros and signed zeros under thresholds -1 and -0, subnormals under a
+    subnormal threshold, and thresholds +inf and NaN."""
+    import numpy as np
+    import torch
+
+    cases = []
+    for m, cap in ((1, 1), (16, 8), (64, 64), (4096, 300), (13824, 517),
+                   (3 * 33 * 17 * 9, 2000), (64 ** 3, 5248)):
+        rng = np.random.default_rng(m)
+        flat = rng.standard_normal((9, m)).astype(np.float32)
+        flat[rng.random((9, m)) < 0.01] *= 100
+        t32 = np.full(9, 5.0, np.float32)
+        flat[1, rng.random(m) < 0.1] = 50.0
+        flat[2, rng.random(m) < 0.01] = np.nan
+        flat[2, rng.random(m) < 0.01] = np.inf
+        flat[2, rng.random(m) < 0.01] = -np.inf
+        flat[3, ::2] = 0.0
+        flat[3, 1::4] = -0.0
+        t32[3] = -1.0
+        flat[4, ::3] = -0.0
+        t32[4] = -0.0
+        flat[5] = (rng.standard_normal(m) * 1e-40).astype(np.float32)
+        t32[5] = np.float32(1e-41)
+        t32[6] = np.inf
+        t32[7] = np.nan
+        flat[8] = 0.0
+        t32[8] = 0.0
+        cases.append((f"edge[9,{m}] cap={cap}",
+                      torch.from_numpy(flat).to(device),
+                      torch.from_numpy(t32).to(device), cap))
+    return cases
+
+
+def engine_cap(counts, m: int) -> int:
+    """The pair capacity the engine adapts to after one batch of these
+    counts (``compress_shapebatch_sparse``: 1.5x the largest kept
+    fraction, rounded up to 128 slots)."""
+    frac = min(0.25, max(float(counts.max()) / m * 1.5, 64 / m))
+    return int(min(m, max(128, -(-int(m * frac) // 128) * 128)))
+
+
+def main_path_rows(data_dir: str, device):
+    """The main path's compaction input: timestep 0's 160 boxes of 64^3
+    (4 components), one-scale coefficients on the card as flat [160,
+    262144], the keep=0.999 thresholds, and the engine's adapted cap."""
+    import numpy as np
+    import torch
+
+    from wavelet_tpu_torch.core import threshold
+    from wavelet_tpu_torch.io import plotfile
+    from wavelet_tpu_torch.kernels import haar_cuda
+    from wavelet_tpu_torch.runtime import engine
+
+    boxes = []
+    for lev in (0, 1):
+        lv = plotfile.read_level(os.path.join(data_dir, TIMESTEPS[0]), lev,
+                                 range(len(COMPONENTS)))
+        boxes += [c for b in lv.boxes if b.shape[1:] == TIME_SHAPE[1:]
+                  for c in b]
+    x = torch.from_numpy(np.stack(boxes).astype(np.float32)).to(device)
+    assert tuple(x.shape) == TIME_SHAPE, x.shape
+    c, mx, mn = haar_cuda.fused_forward_plain(x)
+    flat = c.reshape(c.shape[0], -1)
+    signed = engine.resolve_signed_absmax(
+        mx.cpu().numpy(), mn.cpu().numpy(),
+        row_getter=lambda i: flat[i].cpu().numpy())
+    t32 = torch.from_numpy(threshold.exact_threshold32(signed, KEEP)).to(
+        device)
+    counts = (flat.abs() > t32[:, None]).sum(dim=1).cpu().numpy()
+    return flat, t32, engine_cap(counts, flat.shape[1]), counts
+
+
+def phase_compact_kernels(cases) -> dict:
+    """Phase 4, compaction: kernels vs plain version on the card, counts
+    and the first min(count, cap) pairs bitwise; returns the largest
+    absolute error per kernel (0.0 when bitwise equal)."""
+    import torch
+
+    from wavelet_tpu_torch.kernels import compact_cuda
+
+    err = {"compact_count": 0.0, "compact_scatter": 0.0}
+    for name, flat, t32, cap in cases:
+        counts, idx, vals = compact_cuda.compact(flat, t32, cap)
+        pcounts, pidx, pvals = compact_cuda.compact_plain(flat, t32, cap)
+        torch.cuda.synchronize()
+        ok_count = bool((counts == pcounts).all())
+        err["compact_count"] = max(
+            err["compact_count"],
+            float((counts.long() - pcounts.long()).abs().max()))
+        # the slots a consumer reads: j < min(count, cap) of each row
+        keep = (torch.arange(cap, device=flat.device)[None, :]
+                < pcounts.clamp(max=cap)[:, None])
+        ok_pairs = ok_count and (bool((idx[keep] == pidx[keep]).all())
+                                 and _bits_equal(vals[keep], pvals[keep]))
+        if ok_count and bool(keep.any()):
+            err["compact_scatter"] = max(
+                err["compact_scatter"],
+                float((idx[keep].long() - pidx[keep].long()).abs().max()),
+                _max_abs_err(vals[keep], pvals[keep]))
+        kept = int(pcounts.sum())
+        print(f"  compact {name}: kept {kept} of {flat.numel()}, counts "
+              f"bitwise={ok_count}, pairs bitwise={ok_pairs}")
+        if not (ok_count and ok_pairs):
+            raise AssertionError(f"compaction kernels != plain on {name}")
+    return err
+
+
 def _field(shape, origin, scale, t, q, rng):
     """One component of a synthetic AMR field on a box: smooth background,
     a tanh shock front moving with t, and small noise (float32)."""
@@ -305,7 +439,7 @@ def make_dataset(data_dir: str, seed: int = 0, g: int = 64) -> int:
     f32 box bytes of the run."""
     import numpy as np
 
-    from wavelet_tpu.io import plotfile
+    from wavelet_tpu_torch.io import plotfile
 
     rng = np.random.default_rng(seed)
     # level 0: 4g x 2g x 2g (256x128x128) in 16 boxes of g^3
@@ -361,27 +495,38 @@ def _tree(root):
 
 
 def _reset_launches() -> None:
-    from wavelet_tpu_torch.kernels import haar_cuda, pyramid_cuda
+    from wavelet_tpu_torch.kernels import compact_cuda, haar_cuda, pyramid_cuda
 
     haar_cuda.reset_launches()
     pyramid_cuda.reset_launches()
+    compact_cuda.reset_launches()
 
 
 def _launches() -> dict:
-    from wavelet_tpu_torch.kernels import haar_cuda, pyramid_cuda
+    from wavelet_tpu_torch.kernels import compact_cuda, haar_cuda, pyramid_cuda
 
-    return {**haar_cuda.launches, **pyramid_cuda.launches}
+    return {**haar_cuda.launches, **pyramid_cuda.launches,
+            **compact_cuda.launches}
 
 
-def run_config(data_dir: str, nbytes: int, name: str, keys, steps,
-               expect, bound) -> dict:
+def _check_launched(name: str, launches: dict, expect) -> None:
+    for k in expect:
+        if launches[k] <= 0:
+            raise AssertionError(f"({name}) kernel {k} was not launched on "
+                                 f"its path ({launches})")
+
+
+def run_config(data_dir: str, nbytes: int, name: str, keys, d_keys, steps,
+               expect, bound, same_as, done: dict) -> dict:
     """Phase 5 for one configuration: -c/-d on cuda and cpu over the
-    timesteps ``steps``, byte-compared.  Returns timings, the cuda run's
-    per-stage seconds and launch counts, and the checks' numbers."""
+    timesteps ``steps``, byte-compared, and against the cuda run of
+    ``same_as`` (in ``done``, the results so far) when given.  Returns
+    timings, the cuda run's per-stage seconds, link bytes and launch
+    counts, and the checks' numbers."""
     import numpy as np
 
-    from wavelet_tpu import native
-    from wavelet_tpu.io import plotfile
+    from wavelet_tpu_torch import native
+    from wavelet_tpu_torch.io import plotfile
 
     nbytes = nbytes * len(steps) // len(TIMESTEPS)
     res = {"timesteps": len(steps), "input_bytes": nbytes}
@@ -393,8 +538,8 @@ def run_config(data_dir: str, nbytes: int, name: str, keys, steps,
                   f"maxfile={steps[-1]}", "minlevel=0", "maxlevel=1",
                   "components=" + " ".join(COMPONENTS), *keys,
                   f"compresseddir={comp}", f"device={dev}", "-c"]
-        d_args = [f"compresseddir={comp}", f"out={out}", f"device={dev}",
-                  "-d"]
+        d_args = [f"compresseddir={comp}", f"out={out}", *d_keys,
+                  f"device={dev}", "-d"]
         if dev == "cuda":
             _reset_launches()
         res[f"{dev}_compress_s"], cs = _run_cli(c_args)
@@ -402,10 +547,7 @@ def run_config(data_dir: str, nbytes: int, name: str, keys, steps,
         if dev == "cuda":
             res["launches"] = _launches()
             stats = (cs, ds)
-    for k in expect:
-        if res["launches"][k] <= 0:
-            raise AssertionError(f"({name}) kernel {k} was not launched on "
-                                 f"its path ({res['launches']})")
+    _check_launched(name, res["launches"], expect)
     archives = [_tree(os.path.join(WORK, f"{name}_arch_{d}"))
                 for d in ("cuda", "cpu")]
     if archives[0] != archives[1]:
@@ -416,10 +558,23 @@ def run_config(data_dir: str, nbytes: int, name: str, keys, steps,
     if trees[0] != trees[1] or not trees[0]:
         raise AssertionError(f"({name}) plotfiles differ between "
                              "device=cuda and cpu")
+    cs, ds = stats
+    res["device_to_host_bytes"] = cs["device_to_host_bytes"]
+    res["host_to_device_bytes"] = ds["host_to_device_bytes"]
+    if same_as is not None:
+        ref = done[same_as]
+        if (archives[0] != _tree(os.path.join(WORK, f"{same_as}_arch_cuda"))
+                or trees[0] != _tree(os.path.join(WORK,
+                                                  f"{same_as}_out_cuda"))):
+            raise AssertionError(f"({name}) archive or plotfiles differ "
+                                 f"from ({same_as})'s")
+        for k in ("device_to_host_bytes", "host_to_device_bytes"):
+            if not 0 < res[k] < ref[k]:
+                raise AssertionError(f"({name}) {k} {res[k]} not below "
+                                     f"({same_as})'s {ref[k]}")
     res["archive_bytes"] = sum(len(b) for b in archives[0].values())
     res["plotfile_files"] = len(trees[0])
     res["native_codec"] = bool(native.available())
-    cs, ds = stats
     res["stages"] = {
         "compress": {k: cs[k] for k in ("compress_seconds", "read_seconds",
                                         "device_seconds",
@@ -482,11 +637,57 @@ def _time_ms(fn, x, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def phase_timing(device) -> dict:
+def run_sparse_decompress(name: str, done: dict) -> dict:
+    """(``name``)'s device=cuda archive decompressed on the card with
+    ``transfer=sparse``: the plotfiles must be that configuration's, with
+    fewer bytes over the link."""
+    comp = os.path.join(WORK, f"{name}_arch_cuda") + os.sep
+    out = os.path.join(WORK, f"{name}_out_sparse") + os.sep
+    _reset_launches()
+    secs, ds = _run_cli([f"compresseddir={comp}", f"out={out}",
+                         "transfer=sparse", "device=cuda", "-d"])
+    launches = _launches()
+    _check_launched(f"{name}, -d transfer=sparse", launches,
+                    ("haar_inverse", "pyramid_inverse"))
+    if _tree(out) != _tree(os.path.join(WORK, f"{name}_out_cuda")):
+        raise AssertionError(f"({name}) -d transfer=sparse plotfiles differ "
+                             "from the dense run's")
+    h2d, ref = ds["host_to_device_bytes"], done[name]["host_to_device_bytes"]
+    if not 0 < h2d < ref:
+        raise AssertionError(f"({name}) -d transfer=sparse shipped {h2d} "
+                             f"bytes, not below dense {ref}")
+    return {"cuda_decompress_s": secs, "host_to_device_bytes": h2d,
+            "dense_host_to_device_bytes": ref, "launches": launches,
+            "stages": {k: ds[k] for k in ("decompress_seconds",
+                                          "unpack_seconds", "device_seconds",
+                                          "write_seconds")}}
+
+
+def _pair(kern, plain, inp) -> dict:
+    """plain, kernel, kernel, plain: the mean of each pair."""
+    p1 = _time_ms(plain, inp)
+    k1 = _time_ms(kern, inp)
+    k2 = _time_ms(kern, inp)
+    p2 = _time_ms(plain, inp)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "runs_ms": [p1, k1, k2, p2]}
+
+
+def _bound(nbytes: int) -> dict:
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": nbytes}
+
+
+def phase_timing(device, rows) -> dict:
+    """Kernel, plain-version and library times; each kernel's bound; the
+    link; the sparse-transfer stages.  ``rows`` = :func:`main_path_rows`."""
     import numpy as np
     import torch
 
-    from wavelet_tpu_torch.kernels import haar_cuda, pyramid_cuda
+    from wavelet_tpu_torch.kernels import (build, compact_cuda, haar_cuda,
+                                           pyramid_cuda)
+    from wavelet_tpu_torch.kernels.haar_cuda import _raise_if, _stream
+    from wavelet_tpu_torch.runtime import engine
 
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal(TIME_SHAPE, np.float32)).to(
@@ -508,15 +709,90 @@ def phase_timing(device) -> dict:
                             lambda v: pyramid_cuda.pyramid_inverse_plain(
                                 v, s), pyr),
     }
-    out = {}
-    for name, (kern, plain, inp) in pairs.items():
-        # plain, kernel, kernel, plain: report the mean of each pair
-        p1 = _time_ms(plain, inp)
-        k1 = _time_ms(kern, inp)
-        k2 = _time_ms(kern, inp)
-        p2 = _time_ms(plain, inp)
-        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                     "runs_ms": [p1, k1, k2, p2]}
+    out = {name: _pair(*v) for name, v in pairs.items()}
+    # bounds: each input read once, each output written once; no single
+    # PyTorch call computes a Haar transform or the float-bits histogram
+    box = x.numel() * 4
+    n_box = TIME_SHAPE[0]
+    for name, extra in (("haar_forward", 8 * n_box), ("haar_inverse", 0),
+                        ("pyramid_forward", 8 * n_box),
+                        ("forward_hist", 2048 * 8), ("pyramid_inverse", 0)):
+        out[name].update(_bound(2 * box + extra), library_ms=None)
+
+    # the compaction on the main path's coefficient rows: each kernel
+    # alone on preallocated buffers; its plain version is the whole plain
+    # compaction (the two kernels' function); the library yardstick is
+    # torch.nonzero, which gives positions only
+    flat, t32, cap, counts = rows
+    n, m = (int(d) for d in flat.shape)
+    lib = build.library()
+    n_tiles = int(lib.wt_compact_tiles(m))
+    cnt = torch.empty((n, n_tiles), dtype=torch.int32, device=device)
+    idx = torch.empty((n, cap), dtype=torch.int32, device=device)
+    vals = torch.empty((n, cap), dtype=torch.float32, device=device)
+    st = _stream(flat)
+
+    def count(_):
+        return lib.wt_compact_count(flat.data_ptr(), t32.data_ptr(),
+                                    cnt.data_ptr(), n, m, st)
+
+    _raise_if(count(None), lib, "compact_count")
+    incl = torch.cumsum(cnt, dim=1, dtype=torch.int32)
+    offs = incl - cnt
+
+    def scatter(_):
+        return lib.wt_compact_scatter(flat.data_ptr(), t32.data_ptr(),
+                                      offs.data_ptr(), idx.data_ptr(),
+                                      vals.data_ptr(), n, m, cap, st)
+
+    _raise_if(scatter(None), lib, "compact_scatter")
+
+    def plain(_):
+        return compact_cuda.compact_plain(flat, t32, cap)
+
+    def library(_):
+        return torch.nonzero(torch.abs(flat) > t32[:, None])
+
+    library_ms = _time_ms(library, None)
+    written = int(np.minimum(counts, cap).sum())
+    head = n * m * 4 + n * 4 + n * n_tiles * 4
+    out["compact_count"] = {**_pair(count, plain, None), **_bound(head),
+                            "library_ms": library_ms}
+    out["compact_scatter"] = {**_pair(scatter, plain, None),
+                              **_bound(head + 8 * written),
+                              "library_ms": library_ms}
+    # the whole compaction (wrapper: both kernels and the scan) is the
+    # compress side's sparse stage: its rate is the d2h breakeven
+    stage_ms = _time_ms(lambda _: compact_cuda.compact(flat, t32, cap), None)
+    dense_gb = n * m * 4 / 1e9
+    out["compaction"] = {"ms": stage_ms, "kept": int(counts.sum()),
+                         "kept_fraction": float(counts.sum()) / (n * m),
+                         "max_row_kept_fraction": float(counts.max()) / m,
+                         "cap": cap, "pairs_written": written,
+                         **_bound(n * m * 4 + n * 4 + 8 * written),
+                         "stage_gbps": dense_gb / (stage_ms / 1e3)}
+    # the decompress side's sparse stage: padded pairs as
+    # HostPacker.unpack_sparse makes them, scattered into zeroed rows and
+    # inverted (one scale, the main path's): its rate is the h2d
+    # breakeven
+    maxc = int(counts.max())
+    pcap = min(max(256, 1 << (maxc - 1).bit_length()),
+               1 << (m - 1).bit_length())
+    pc, pidx, pvals = compact_cuda.compact(flat, t32, pcap)
+    slot = torch.arange(pcap, device=device)
+    pad = slot[None, :] >= pc[:, None]
+    pidx = torch.where(pad, (m + slot).to(torch.int32)[None, :], pidx)
+    pvals = torch.where(pad, torch.zeros((), device=device), pvals)
+    dims = TIME_SHAPE[1:]
+
+    def h2d_stage(_):
+        return haar_cuda.fused_inverse(
+            engine.CodecEngine.scatter_rows(pidx, pvals, dims))
+
+    rows_ms = _time_ms(h2d_stage, None)
+    out["scatter_inverse"] = {"ms": rows_ms, "pair_cap": pcap,
+                              "stage_gbps": dense_gb / (rows_ms / 1e3)}
+    out["link_gbps"] = engine.CodecEngine._measure_link()
     return out
 
 
@@ -546,36 +822,50 @@ def main() -> int:
           f"{' '.join(build.NVCC_FLAGS)}")
     print(build.build_log.strip())
 
-    err = {**phase_kernels(device), **phase_pyramid_kernels(device)}
-    print(f"phase 4 ok: kernels bitwise equal to plain versions "
-          f"(max_abs_err {err})")
     shutil.rmtree(WORK, ignore_errors=True)
     data_dir = os.path.join(WORK, "data")
     t0 = time.perf_counter()
     nbytes = make_dataset(data_dir)
     print(f"dataset: {nbytes} f32 box bytes in {len(TIMESTEPS)} "
           f"timesteps, written in {time.perf_counter() - t0:.1f} s")
+    rows = main_path_rows(data_dir, device)
+    err = {**phase_kernels(device), **phase_pyramid_kernels(device),
+           **phase_compact_kernels(
+               _compact_edge_cases(device)
+               + [(f"main path [{TIME_SHAPE[0]}, {rows[0].shape[1]}] "
+                   f"cap={rows[2]}", *rows[:3])])}
+    print(f"phase 4 ok: kernels bitwise equal to plain versions "
+          f"(max_abs_err {err})")
     launches = dict.fromkeys(KERNELS, 0)
-    for name, keys, steps, expect, bound in CONFIGS:
+    done = {}
+    for name, keys, d_keys, steps, expect, bound, same_as in CONFIGS:
         t0 = time.perf_counter()
-        e2e = run_config(data_dir, nbytes, name, keys, steps, expect, bound)
+        e2e = done[name] = run_config(data_dir, nbytes, name, keys, d_keys,
+                                      steps, expect, bound, same_as, done)
         for k, v in e2e["launches"].items():
             launches[k] += v
-        print(f"end to end ({name}: {' '.join(keys)}; {card}; "
+        print(f"end to end ({name}: {' '.join(keys + d_keys)}; {card}; "
               f"{time.perf_counter() - t0:.1f} s): " + json.dumps(e2e))
-    timing = phase_timing(device)
+    t0 = time.perf_counter()
+    sd = run_sparse_decompress("c", done)
+    for k, v in sd["launches"].items():
+        launches[k] += v
+    print(f"end to end (c, -d transfer=sparse; {card}; "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(sd))
+    timing = phase_timing(device, rows)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="
-          f"{TIME_SCALES} ({card}): " + json.dumps(timing))
+          f"{TIME_SCALES}, compaction on the main path's coefficient rows "
+          f"({card}): " + json.dumps(timing))
     kernels = []
     for name, (replaces, source) in KERNELS.items():
+        t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": err[name],
-            "ms": timing[name]["ms"],
-            "plain_ms": timing[name]["plain_ms"]})
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,8 +4,10 @@
     python3 profile_runs.py [--out chiprun_out/profile_runs.json]
 
 Writes ``chip_smoke.py``'s synthetic dataset (both timesteps), then for
-each of its configurations runs ``-c`` and ``-d`` with ``device=cuda``
-once to warm up and once under ``torch.profiler``.  For each run it
+each of its configurations ((a)-(c) dense, (d) ``scales=2
+transfer=sparse`` on ``-c`` and ``-d``) runs ``-c`` and ``-d`` with
+``device=cuda`` once to warm up and once under ``torch.profiler``.  For
+each run it
 reports the wall seconds of the profiled run, the device busy time (the
 union of the CUDA activity intervals: kernels, copies, memsets), the idle
 share ``1 - busy / wall``, the device time and count of each activity by
@@ -88,14 +90,15 @@ def main(argv=None) -> int:
     chip_smoke.make_dataset(data_dir)
     steps = chip_smoke.TIMESTEPS
     report = {"card": card}
-    for name, keys, _steps, _expect, _bound in chip_smoke.CONFIGS:
+    for name, keys, d_keys, *_ in chip_smoke.CONFIGS:
         comp = os.path.join(WORK, f"{name}_arch") + os.sep
         out = os.path.join(WORK, f"{name}_out") + os.sep
         c_args = [f"datadir={data_dir}", f"minfile={steps[0]}",
                   f"maxfile={steps[-1]}", "minlevel=0", "maxlevel=1",
                   "components=" + " ".join(chip_smoke.COMPONENTS), *keys,
                   f"compresseddir={comp}", "device=cuda", "-c"]
-        d_args = [f"compresseddir={comp}", f"out={out}", "device=cuda", "-d"]
+        d_args = [f"compresseddir={comp}", f"out={out}", *d_keys,
+                  "device=cuda", "-d"]
         for what, args in (("compress", c_args), ("decompress", d_args)):
             r = report[f"{name}_{what}"] = _profiled(args)
             print(f"{name} {what}: wall {r['wall_s']:.3f} s, device busy "

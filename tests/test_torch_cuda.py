@@ -14,8 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from wavelet_tpu.runtime import batching  # noqa: E402
-from wavelet_tpu_torch.kernels import haar_cuda, pyramid_cuda  # noqa: E402
+from wavelet_tpu_torch.runtime import batching  # noqa: E402
+from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,  # noqa: E402
+                                       pyramid_cuda)
 from wavelet_tpu_torch.runtime import engine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +135,94 @@ def test_engine_scales_cuda_equals_cpu(cuda_device, scales):
                      eng.decompress_shapebatch(cb).data))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def _compact_rows(m, seed):
+    """Rows at ~1% kept, ~10% kept (past the cap), with NaN and +-inf,
+    zeros and signed zeros under negative and +-0 thresholds, subnormals,
+    and thresholds +inf and NaN."""
+    rng = np.random.default_rng(seed)
+    n = 9
+    flat = rng.standard_normal((n, m)).astype(np.float32)
+    flat[rng.random((n, m)) < 0.01] *= 100
+    t32 = np.full(n, 5.0, np.float32)
+    flat[1, rng.random(m) < 0.1] = 50.0
+    flat[2, rng.random(m) < 0.01] = np.nan
+    flat[2, rng.random(m) < 0.01] = np.inf
+    flat[2, rng.random(m) < 0.01] = -np.inf
+    flat[3, ::2] = 0.0
+    flat[3, 1::4] = -0.0
+    t32[3] = -1.0
+    flat[4, ::3] = -0.0
+    t32[4] = -0.0
+    flat[5] = (rng.standard_normal(m) * 1e-40).astype(np.float32)
+    t32[5] = np.float32(1e-41)
+    t32[6] = np.inf
+    t32[7] = np.nan
+    flat[8] = 0.0
+    t32[8] = 0.0
+    return flat, t32
+
+
+def _assert_compact_equal(got, want, cap):
+    counts, idx, vals = (x.cpu().numpy() for x in got)
+    wcounts, widx, wvals = (x.cpu().numpy() for x in want)
+    np.testing.assert_array_equal(counts, wcounts)
+    for i, c in enumerate(wcounts):
+        k = min(int(c), cap)
+        np.testing.assert_array_equal(idx[i, :k], widx[i, :k])
+        np.testing.assert_array_equal(vals[i, :k].view(np.int32),
+                                      wvals[i, :k].view(np.int32))
+
+
+@pytest.mark.parametrize("m,cap", [(1, 1), (16, 8), (64, 64), (4096, 300),
+                                   (13824, 517), (3 * 33 * 17 * 9, 2000),
+                                   (64 ** 3, 5248)])
+def test_compact_kernels_match_plain(cuda_device, m, cap):
+    flat, t32 = _compact_rows(m, m)
+    flat = torch.from_numpy(flat).to(cuda_device)
+    t32 = torch.from_numpy(t32).to(cuda_device)
+    got = compact_cuda.compact(flat, t32, cap)
+    want = compact_cuda.compact_plain(flat, t32, cap)
+    torch.cuda.synchronize()
+    _assert_compact_equal(got, want, cap)
+
+
+def test_compact_launches_count(cuda_device):
+    before = dict(compact_cuda.launches)
+    flat = torch.ones((2, 8), device=cuda_device)
+    compact_cuda.compact(flat, torch.zeros(2, device=cuda_device), 8)
+    for k in ("compact_count", "compact_scatter"):
+        assert compact_cuda.launches[k] == before[k] + 1
+
+
+@pytest.mark.parametrize("dims,scales", [((16, 16, 16), 1),
+                                         ((16, 16, 16), 2), ((9, 6, 5), 1)])
+def test_engine_sparse_cuda_equals_cpu(cuda_device, dims, scales, tmp_path):
+    items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=b)
+             for b in range(5)]
+    data = _batch((5,) + dims, 7)
+    data[:, 1:, :, :] *= 1e-4
+    outs = []
+    for dev in ("cuda", "cpu"):
+        eng = engine.CodecEngine(device=dev, scales=scales)
+        batch = batching.ShapeBatch(shape=dims, data=data.copy(),
+                                    items=items, n_valid=5)
+        sparse, t32 = eng.compress_shapebatch_sparse(batch, 0.999)
+        pairs = [sparse.item_pairs(i, float(t32[i])) for i in range(5)]
+        packer = engine.HostPacker()
+        out_dir = tmp_path / dev
+        out_dir.mkdir()
+        packer.pack_sparse(str(out_dir), sparse, t32)
+        shell = batching.ShapeBatch(shape=dims, data=None, items=items,
+                                    n_valid=5)
+        idx, vals = packer.unpack_sparse(str(out_dir), shell)
+        rec = eng.decompress_shapebatch_sparse(shell, idx, vals).data
+        outs.append((t32, sparse.counts, pairs, rec))
+    (t, c, p, r), (ct, cc, cp, cr) = outs
+    np.testing.assert_array_equal(t.view(np.int32), ct.view(np.int32))
+    np.testing.assert_array_equal(c, cc)
+    for (a, b), (ca, cb) in zip(p, cp):
+        np.testing.assert_array_equal(a, ca)
+        np.testing.assert_array_equal(b.view(np.int32), cb.view(np.int32))
+    np.testing.assert_array_equal(r.view(np.int32), cr.view(np.int32))

@@ -173,7 +173,7 @@ def test_cli_device_cuda_raises_without_cuda(runs, tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [
     ["processes=2", "-c"],
     ["fastestimate=1", "-c"],
-    ["transfer=sparse", "-c"],
+    ["preview=1", "-d"],
     ["devices=2", "-c"],
     ["-estimate"],
     ["-check"],
@@ -186,7 +186,7 @@ def test_cli_unported_modes_raise(argv):
 
 
 @pytest.mark.parametrize("option", [{"preview": 1}, {"giant_box_bytes": 1},
-                                    {"transfer": "sparse"}])
+                                    {"coordinator": "localhost:1"}])
 def test_api_rejects_unported_options(runs, tmp_path, option):
     with pytest.raises(TypeError, match="unknown option"):
         wavelet_tpu_torch.compress(

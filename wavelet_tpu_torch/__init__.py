@@ -7,13 +7,15 @@ It keeps the JAX package's module names, so each part has a counterpart:
                 reference the kernels are held to);
 - ``kernels``   hand-written CUDA kernels (``csrc/``), built with nvcc at
                 first use, with their wrappers and launch counts;
-- ``runtime``   the device codec engine and the host packer;
+- ``runtime``   the device codec engine, the host packer, batching;
 - ``pipeline``  the compress / decompress modes;
+- ``io``, ``native``  plotfile and archive I/O, the native host codec;
 - ``api``, ``cli``  the entry points.
 
-Host-side code with no backend in it (plotfile and archive I/O, the native
-codec, RLE, batching) is imported from ``wavelet_tpu`` unchanged; nothing
-here imports jax.
+Host-side code with no backend in it (``io``, ``native``, ``core/rle``,
+``runtime/batching``, ``runtime/debug.phase_timer``) is a copy of the JAX
+package's, unchanged but for its imports: nothing here imports jax or
+``wavelet_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,10 @@
         keep=0.999, device="cuda")
     wavelet_tpu_torch.decompress("/archive", "/regen", device="cuda")
 
-Global thresholds and pyramids take the JAX package's keyword names:
-``threshold_mode="global", keep_fraction=0.02, scales=2,
-global_cache_bytes=...``.  Every other knob is a keyword named after its
+Global thresholds, pyramids and sparse transfer take the JAX package's
+keyword names: ``threshold_mode="global", keep_fraction=0.02, scales=2,
+global_cache_bytes=...``, ``transfer="dense"|"sparse"|"auto"`` (for both
+calls).  Every other knob is a keyword named after its
 :class:`~wavelet_tpu_torch.pipeline.common.Config` field; unknown names
 raise ``TypeError``.  Both return the pipeline's stats dict.
 """
@@ -56,7 +57,7 @@ def decompress(compressed_dir: str, out_dir: str, *, device: str = "cuda",
                **options) -> dict:
     """Regenerate plotfiles from an archive (CLI -d).  Partial retrieval
     via ``min_time=``/``max_time=``, ``components=[...]``,
-    ``levels_upto=L``."""
+    ``levels_upto=L``; ``transfer=`` as for :func:`compress`."""
     cfg = _build_config(dict(compressed_dir=compressed_dir, out_dir=out_dir,
                              device=device), options)
     return _decompress_run(cfg)

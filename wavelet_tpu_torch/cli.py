@@ -11,10 +11,12 @@ which raises when CUDA is unavailable)::
     python -m wavelet_tpu_torch.cli ... thresholdmode=global \
         keepfraction=0.02 scales=2 compresseddir=out2/ -c
     python -m wavelet_tpu_torch.cli compresseddir=out/ out=regen/ -d
+    python -m wavelet_tpu_torch.cli compresseddir=out/ out=regen/ \
+        transfer=sparse -d
 
-Modes and keys not yet ported (``-estimate``, ``-check``, ``-info``,
-sparse transfer, preview, multi-device and multi-process keys) raise
-``NotImplementedError``.
+``transfer=dense|sparse|auto`` works on ``-c`` and ``-d``.  Modes and keys
+not yet ported (``-estimate``, ``-check``, ``-info``, preview,
+multi-device and multi-process keys) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,10 +47,13 @@ Keys: device=cuda|cpu (default cuda)  payload=f32|q16  codec=xz|raw
       keep= is then not needed)  globalcache=BYTES (global: host RAM for
       pass-1 coefficients, default 4 GiB or WAVELET_TPU_GLOBALCACHE;
       0 = always re-read)
+      transfer=dense|sparse|auto (-c and -d; sparse: compact on the
+      device, only kept (index, value) pairs cross the link; auto:
+      sparse iff the measured link is below the device-stage breakeven)
 """
 
 # keys of wavelet_tpu.cli whose non-default values this port does not run
-_UNPORTED = {"transfer": "dense", "preview": "0", "devices": "1",
+_UNPORTED = {"preview": "0", "devices": "1",
              "coordinator": None, "processes": None, "processid": None,
              "giantbox": None, "giantmesh": "local", "fastestimate": "0",
              "devicemetrics": "0", "profile": None}
@@ -91,6 +96,13 @@ def parse_argv(argv):
             raise SystemExit(f"Missing {key}!")
         return kv[key]
 
+    def transfer_key():
+        t = kv.get("transfer", "dense")
+        if t not in ("dense", "sparse", "auto"):
+            # a typo'd transport would otherwise silently run dense
+            raise SystemExit(f"Unknown transfer={t!r} (dense|sparse|auto)")
+        return t
+
     def globalcache_key():
         if "globalcache" not in kv:
             return None
@@ -105,6 +117,7 @@ def parse_argv(argv):
     if cfg.device not in ("cuda", "cpu"):
         raise SystemExit(f"Unknown device={cfg.device!r} (cuda|cpu)")
     cfg.prefetch = int(kv.get("prefetch", "0"))
+    cfg.transfer = transfer_key()
     if mode == "c":
         cfg.data_dir = need("datadir")
         cfg.min_time = need("minfile")

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and load them.
 
 The sources in ``wavelet_tpu_torch/csrc/*.cu`` have a plain C interface,
-so they compile in seconds without PyTorch's headers.  The shared library
+so they compile in seconds without PyTorch's headers, all in one ``nvcc``
+call into one shared library.  The library
 goes to ``build/wavelet_tpu_torch/`` at the root of the checkout, under a
 name keyed by a hash of the sources and flags, and is loaded with
 ``ctypes``.  Nothing is built when this module is imported.
@@ -76,6 +77,12 @@ def _bind(lib) -> None:
     lib.wt_forward_hist.restype = i32
     lib.wt_pyramid_inverse.argtypes = [vp] * 3 + [i32] * 5 + [vp]
     lib.wt_pyramid_inverse.restype = i32
+    lib.wt_compact_tiles.argtypes = [i32]
+    lib.wt_compact_tiles.restype = i32
+    lib.wt_compact_count.argtypes = [vp] * 3 + [i32] * 2 + [vp]
+    lib.wt_compact_count.restype = i32
+    lib.wt_compact_scatter.argtypes = [vp] * 5 + [i32] * 3 + [vp]
+    lib.wt_compact_scatter.restype = i32
 
 
 def library():

@@ -14,7 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from wavelet_tpu.io import archive, plotfile
+from wavelet_tpu_torch.io import archive, plotfile
 
 __all__ = ["Config", "clean_string", "format_files", "format_levels",
            "RunMeta", "collect_run_meta"]
@@ -24,8 +24,8 @@ __all__ = ["Config", "clean_string", "format_files", "format_levels",
 class Config:
     """Reference ``Config`` (argparse.h:7-16) plus the extension keys the
     port runs, under the JAX package's names.  Its other keys
-    (``transfer``, ``preview``, multi-device and estimate keys, ...) are
-    not ported: the port always runs dense transfer on one device."""
+    (``preview``, multi-device and estimate keys, ...) are not ported: the
+    port runs on one device."""
 
     data_dir: str = ""
     min_time: str = ""
@@ -54,6 +54,12 @@ class Config:
     out_precision: str = "f64"        # decompress: FAB width "f64" | "f32"
     prefetch: int = 0                 # 1 = overlap plotfile I/O with the
                                       #   codec (two timesteps in memory)
+    transfer: str = "dense"           # "dense" | "sparse" (on-device
+                                      #   compaction, kept pairs only over
+                                      #   the link) | "auto" (sparse iff the
+                                      #   measured link is slower than the
+                                      #   device stage's breakeven,
+                                      #   engine.transfer_mode)
     device: str = "cuda"              # "cuda" (kernels) | "cpu" (plain)
 
 

@@ -1,8 +1,7 @@
 """Compression pipeline on PyTorch (reference: ``compress(Config)``,
 modes.cpp:24-112).
 
-Counterpart of ``wavelet_tpu.pipeline.compress`` for one device and dense
-transfer:
+Counterpart of ``wavelet_tpu.pipeline.compress`` for one device:
 
   1. host: discover files, parse headers + Cell_H box lists, write the
      five sidecar files first (the archive is then resumable state);
@@ -11,28 +10,32 @@ transfer:
      (Haar transform or ``scales``-deep pyramid + max/min -> exact per-box
      thresholds, runtime/engine), host RLE + serialize + xz in the packer,
      then free.  The device works on batch i+1 while one pack thread runs
-     batch i.
+     batch i.  ``transfer=sparse`` (or ``auto`` on a slow link) compacts
+     each batch's kept coefficients on the device and fetches only the
+     (index, value) pairs; the archive bytes are the same.
 
 ``thresholdmode=global`` streams twice: pass 1 sums the coefficient
 magnitude histogram of every item (keeping whole timesteps' coefficients
 in host RAM up to the ``globalcache`` budget), one threshold keeps
 ``keep_fraction`` of all coefficients, and pass 2 packs at that threshold,
-re-reading the timesteps pass 1 did not keep.  The JAX package's other
-modes (sparse transfer, multi-device, multi-process) are not ported.
+re-reading the timesteps pass 1 did not keep; pass 2 fetches dense
+coefficients, as in the JAX package.  The JAX package's other modes
+(multi-device, multi-process) are not ported.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import functools
 import logging
 import os
 import time
 
 import numpy as np
 
-from wavelet_tpu.io import archive, plotfile
-from wavelet_tpu.runtime import batching
-from wavelet_tpu.runtime.debug import phase_timer
+from wavelet_tpu_torch.io import archive, plotfile
+from wavelet_tpu_torch.runtime import batching
+from wavelet_tpu_torch.runtime.debug import phase_timer
 from wavelet_tpu_torch.core import threshold
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
@@ -88,33 +91,31 @@ def _have_index(out_dir: str, archive_format: str):
     mode), or None (files mode stats per file)."""
     if archive_format != "bundle":
         return None
-    from wavelet_tpu.io import bundle as bundle_mod
+    from wavelet_tpu_torch.io import bundle as bundle_mod
 
     return set(bundle_mod.BundleSet(out_dir).keys())
 
 
-def _pack_overlapped(batches, device_step, packer, out_dir: str,
+def _pack_overlapped(batches, device_step, out_dir: str,
                      stats: dict) -> None:
     """The overlapped device-codec + host-pack loop: the device step of
     batch i+1 runs while a pack thread runs the host RLE+xz+write of batch
-    i.  ``device_step(batch) -> (coeff batch, t32, subset)``; ``subset``
-    (None = all) names the items to pack.  One pack worker keeps bundle
-    member order deterministic.  Adds to ``stats``: files, bytes, and the
-    seconds spent in the device step (H2D, kernels, D2H, thresholds) and
-    waiting on the pack thread."""
+    i.  ``device_step(batch) -> (pack, n_packed)``: ``pack(out_dir)``
+    packs the ``n_packed`` items the step chose and returns the bytes it
+    wrote.  One pack worker keeps bundle member order deterministic.  Adds
+    to ``stats``: files, bytes, and the seconds spent in the device step
+    (H2D, kernels, D2H, thresholds) and waiting on the pack thread."""
     with cf.ThreadPoolExecutor(1) as pack_pool:
         pending = None
         for batch in batches:
             t0 = time.perf_counter()
-            coeffs, t32, subset = device_step(batch)
+            pack, n_packed = device_step(batch)
             t1 = time.perf_counter()
             if pending is not None:
                 stats["output_bytes"] += pending.result()
             stats["device_seconds"] += t1 - t0
             stats["pack_wait_seconds"] += time.perf_counter() - t1
-            pending = pack_pool.submit(packer.pack, out_dir, coeffs, t32,
-                                       subset)
-            n_packed = len(batch.items) if subset is None else len(subset)
+            pending = pack_pool.submit(pack, out_dir)
             stats["files"] += n_packed
             stats["input_bytes"] += n_packed * int(np.prod(batch.shape)) * 4
         if pending is not None:
@@ -215,9 +216,12 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
                 stats["skipped"] += len(cb.items) - len(subset)
                 if len(subset) == len(cb.items):
                     subset = None
-            return cb, np.full(len(cb.items), tval, np.float32), subset
+            t32 = np.full(len(cb.items), tval, np.float32)
+            n_packed = len(cb.items) if subset is None else len(subset)
+            return (functools.partial(packer.pack, coeff_batch=cb, t32=t32,
+                                      subset=subset), n_packed)
 
-        _pack_overlapped(batches, step, packer, cfg.compressed_dir, stats)
+        _pack_overlapped(batches, step, cfg.compressed_dir, stats)
         bundle_bytes += packer.close_bundles(t)
     return bundle_bytes
 
@@ -257,9 +261,17 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
         return batches
 
     def box_step(batch):
+        if eng.transfer_mode(batch.shape, cfg.transfer) == "sparse":
+            # sparsification on the device: only the kept (index, value)
+            # pairs cross the device->host link
+            sparse, t32 = eng.compress_shapebatch_sparse(batch, cfg.keep)
+            stats["device_to_host_bytes"] += sparse.transfer_bytes()
+            return (functools.partial(packer.pack_sparse, sparse=sparse,
+                                      t32=t32), len(batch.items))
         coeffs, t32 = eng.compress_shapebatch(batch, cfg.keep)
         stats["device_to_host_bytes"] += coeffs.data.nbytes
-        return coeffs, t32, None
+        return (functools.partial(packer.pack, coeff_batch=coeffs, t32=t32),
+                len(batch.items))
 
     if cfg.threshold_mode == "global":
         bundle_bytes = _compress_global(cfg, meta, eng, packer, have,
@@ -269,8 +281,12 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
         for t, batches in _iter_prefetched(
                 len(meta.files), lambda t: timestep_batches(t, cfg.resume),
                 cfg.prefetch):
-            _pack_overlapped(batches, box_step, packer, cfg.compressed_dir,
-                             stats)
+            # timestep boundary: the link is quiescent here (the prefetch
+            # worker only reads the disk), so a stale transfer=auto probe
+            # can re-run without measuring the pipeline's own transfers
+            if cfg.transfer == "auto":
+                engine.CodecEngine.reprobe_link_if_stale()
+            _pack_overlapped(batches, box_step, cfg.compressed_dir, stats)
             # a finished timestep's bundle is closed right away: a crash
             # costs one timestep, like the per-file mode
             bundle_bytes += packer.close_bundles(t)

@@ -13,7 +13,10 @@ Counterpart of ``wavelet_tpu.pipeline.decompress`` for the main path:
 Partial retrieval (timestep window, component subset, level prefix) and
 ``scales>1`` archives are ported (each box shape takes the pyramid depth
 ``eff_scales`` derives from its dims and the archive's ``scales``, as in
-compression); preview and sparse transfer are not.
+compression), and so is sparse transfer: ``transfer=sparse`` (or ``auto``
+on a slow link) ships only the kept (position, value) pairs to the device
+and scatters them there, for box-mode and global-mode archives alike.
+Preview is not ported.
 """
 
 from __future__ import annotations
@@ -25,9 +28,9 @@ import time
 
 import numpy as np
 
-from wavelet_tpu.io import archive, plotfile
-from wavelet_tpu.runtime import batching
-from wavelet_tpu.runtime.debug import phase_timer
+from wavelet_tpu_torch.io import archive, plotfile
+from wavelet_tpu_torch.runtime import batching
+from wavelet_tpu_torch.runtime.debug import phase_timer
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
 
@@ -37,17 +40,52 @@ __all__ = ["decompress_run", "iter_decompressed_timesteps"]
 
 
 def _unpack_bucket(cfg, eng, packer, dims, bucket_items, arena=None):
-    """HOST stage of one shape bucket: read + decode into a filled
-    coefficient ShapeBatch (no device work, so a prefetch worker can run
-    it behind the previous bucket's inverse)."""
-    batch = batching.empty_batch(bucket_items, dims,
-                                 pack=eng.pack_factor(dims),
-                                 pad_multiple=eng.pad_multiple_for(dims),
-                                 layout=eng.coeff_layout(dims),
-                                 scales=eng.eff_scales(dims),
-                                 arena=arena)
+    """HOST stage of one shape bucket: read + decode + the transport
+    decision.  Returns ``(kind, payload, h2d)`` where kind is "dense"
+    (payload = a filled coefficient ShapeBatch) or "sparse" (payload =
+    (shell batch, idx, vals)), and ``h2d`` the bytes the device stage
+    ships — no device work happens here, so a prefetch worker can run it
+    behind the previous bucket's inverse."""
+    pad = eng.pad_multiple_for(dims)
+
+    def dense_batch():
+        return batching.empty_batch(bucket_items, dims,
+                                    pack=eng.pack_factor(dims),
+                                    pad_multiple=pad,
+                                    layout=eng.coeff_layout(dims),
+                                    scales=eng.eff_scales(dims),
+                                    arena=arena)
+
+    if eng.transfer_mode(dims, cfg.transfer, direction="h2d") == "sparse":
+        batch = batching.ShapeBatch(shape=dims, data=None,
+                                    items=bucket_items,
+                                    n_valid=len(bucket_items))
+        idx, vals = packer.unpack_sparse(cfg.compressed_dir, batch)
+        dense_nbytes = batching.dense_batch_nbytes(
+            len(bucket_items), dims, pack=eng.pack_factor(dims),
+            pad_multiple=pad)
+        if idx.nbytes + vals.nbytes < dense_nbytes:
+            return "sparse", (batch, idx, vals), idx.nbytes + vals.nbytes
+        # sparse transport must never ship MORE than dense: at high kept
+        # fractions (pairs are 8 B/coefficient vs 4 B dense, padded to a
+        # shared power-of-2 capacity) the pair stream can exceed the dense
+        # rows — scatter the decoded pairs into dense rows on the host and
+        # take the dense device path instead
+        log.info("sparse transfer: kept fraction too high for shape %s "
+                 "(%d pair bytes >= %d dense) — falling back to dense "
+                 "transport", dims, idx.nbytes + vals.nbytes, dense_nbytes)
+        dense = dense_batch()
+        m = int(np.prod(dims))
+        row = np.zeros(m, np.float32)
+        for i in range(len(bucket_items)):
+            k = idx[i] < m
+            row[:] = 0.0
+            row[idx[i][k]] = vals[i][k]
+            dense.item_write(i, row.reshape(dims))
+        return "dense", dense, dense.data.nbytes
+    batch = dense_batch()
     packer.unpack_into(cfg.compressed_dir, batch)
-    return batch
+    return "dense", batch, batch.data.nbytes
 
 
 def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
@@ -78,12 +116,16 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
         stats["unpack_seconds"] += time.perf_counter() - t0
         return batch
 
-    def device_stage(j, batch):
+    def device_stage(j, prepared):
         dims, bucket_items = order[j]
+        kind, payload, h2d = prepared
         t0 = time.perf_counter()
-        out = eng.decompress_shapebatch(batch)
+        if kind == "sparse":
+            out = eng.decompress_shapebatch_sparse(*payload)
+        else:
+            out = eng.decompress_shapebatch(payload)
         stats["device_seconds"] += time.perf_counter() - t0
-        stats["host_to_device_bytes"] += batch.data.nbytes
+        stats["host_to_device_bytes"] += h2d
         for i, it in enumerate(bucket_items):
             if regen[it.level][it.box] is None:
                 regen[it.level][it.box] = np.zeros((ncomp,) + dims,
@@ -91,8 +133,8 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
             regen[it.level][it.box][comp_pos[it.comp_idx]] = out.item_view(i)
         # the device stage fetched its result above, so the input buffer
         # can be recycled for a later bucket's unpack (BufferArena contract)
-        if arena is not None:
-            arena.release(batch.data)
+        if arena is not None and kind == "dense":
+            arena.release(payload.data)
 
     if cfg.prefetch > 0 and len(order) > 1:
         with cf.ThreadPoolExecutor(1) as pool:
@@ -197,7 +239,12 @@ def iter_decompressed_timesteps(cfg: common.Config, stats=None):
     stats.setdefault("unpack_seconds", 0.0)
     stats.setdefault("device_seconds", 0.0)
     for t in sel_times:
+        # timestep boundary: the link is quiescent here (the prefetch
+        # worker only writes plotfiles), so a stale transfer=auto probe
+        # can re-run without measuring the pipeline's own transfers
         arena.new_generation()
+        if cfg.transfer == "auto":
+            engine.CodecEngine.reprobe_link_if_stale()
         regen = _decompress_timestep(cfg, eng, packer, comp_idxs, t,
                                      num_levels, counts, dimensions, stats,
                                      arena=arena)
