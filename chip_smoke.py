@@ -21,6 +21,11 @@ Phases (any failure exits non-zero before the last line):
    bitwise: rows of 1 to 64^3 elements with NaN, +-inf, signed zeros,
    subnormals and thresholds negative, -0, +inf and NaN, and the main
    path's [160, 262144] coefficient rows at the dataset's kept fraction.
+   The lane-packed kernels (``packed_forward``, ``packed_inverse``,
+   ``packed_forward_hist``) likewise, bitwise with histograms exactly:
+   [80, 64, 64, 128] (P = 2, the dataset's 64^3 boxes), [*, 32, 64, 128]
+   (P = 2), [*, 8, 4, 128] (P = 64), odd X/Y (5, 3, 16) at P = 8,
+   subnormals, +-inf, NaN and a ``min == -max`` tie box.
 5. End to end: a synthetic AMR run (2 timesteps, 2 levels, 4 components,
    ~168 MiB of f32 boxes per timestep, f64 FABs on disk) compressed and
    decompressed with ``device=cuda`` through the pipelines the CLI calls
@@ -29,19 +34,35 @@ Phases (any failure exits non-zero before the last line):
    path (box thresholds, keep=0.999, one scale), (b) ``scales=2`` on the
    first timestep only (to keep the script's time down; one timestep
    holds every box shape), (c) ``thresholdmode=global keepfraction=0.02
-   scales=2``, (d) (b) with ``transfer=sparse`` on ``-c`` and ``-d``.
-   Each archive and each set of regenerated
+   scales=2``, (d) (b) with ``transfer=sparse`` on ``-c`` and ``-d``, (e)
+   (a) under ``WAVELET_TPU_LAYOUT=halves`` (the lane-packed route) on the
+   first timestep.  Each archive and each set of regenerated
    plotfiles must be byte-identical to the same run with ``device=cpu``
    (the plain path, which the CPU tests hold bitwise to the JAX package),
    each path's kernels must have been launched in its run (the counts are
    set to 0 just before and read just after), and the output must be
    finite and close to the input.  (d)'s archive and plotfiles must also
-   be (b)'s, with fewer bytes over the link both ways; and (c)'s archive
-   decompressed with ``transfer=sparse`` must give (c)'s plotfiles.
+   be (b)'s, with fewer bytes over the link both ways; (e)'s payloads and
+   plotfiles must be (a)'s, with the packed kernels launched on every
+   bucket and the unpacked ones never; and (c)'s archive decompressed with
+   ``transfer=sparse`` must give (c)'s plotfiles.  (f), ``-c`` on the first
+   timestep under ``WAVELET_TPU_LAYOUT=halves``: ``thresholdmode=global
+   keepfraction=0.02 transfer=sparse`` must write the default layout's
+   archive through ``packed_forward_hist``, and ``keep=0.999
+   transfer=sparse`` (e)'s archive through ``packed_forward`` and the
+   compaction.  (g) ``-estimate`` on timestep 0, level 0: the scratch path
+   (keep=0.999), ``fastestimate=1 keep="0.99 0.999 0.9999"`` and
+   ``thresholdmode=global keepfraction="0.01 0.02"``, each with
+   ``device=cuda`` and ``device=cpu`` at both layouts, must report the
+   same RMSE, adjusted loss and size; ``devicemetrics=1`` must agree with
+   the host metrics to ``rtol=1e-5``.  Then ``-check`` and ``-info`` on
+   (a)'s archive.
 6. Timing: kernel and plain-version times with CUDA events at the main
-   path's 64^3 batch (the compaction on its coefficient rows), each
-   kernel's bound (its inputs read once and outputs written once at 3.35
-   TB/s), the link rate, and the two sparse-transfer stage rates that set
+   path's 64^3 batch (the compaction on its coefficient rows; the packed
+   kernels on the same boxes packed two to a row, and at P = 64 beside
+   K1/K2 on the same bytes of 8x4x2 boxes), each kernel's bound (its
+   inputs read once and outputs written once at 3.35 TB/s), the link
+   rate, and the two sparse-transfer stage rates that set
    ``transfer=auto``'s breakevens.
 
 The line before the last is the JSON kernel report; the last line is
@@ -66,17 +87,24 @@ KEEP = 0.999
 CHECK_SHAPES = [(32, 64, 64, 64), (4, 32, 64, 64), (3, 33, 17, 9),
                 (2, 1, 1, 1), (5, 8, 4, 2)]
 TIME_SHAPE = (160, 64, 64, 64)   # the main path's 64^3 bucket per timestep
+PACKED_SHAPE = (80, 64, 64, 128)   # the same boxes lane-packed, P = 2
+P64_SHAPE = (10240, 8, 4, 128)     # 8x4x2 boxes at P = 64, the same bytes
 TIME_SCALES = 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, data sheet
 # (name, extra -c keys, extra -d keys, timesteps, kernels the path must
 # launch, bound on the reconstruction error, the configuration whose
-# device=cuda archive and plotfiles this one must equal).  The bound is
+# device=cuda archive and plotfiles this one must equal, options: "env"
+# set around both runs, "payloads_of" a configuration whose payload files
+# and plotfiles of these timesteps this one must equal, "per_bucket"
+# kernels launched at least once per shape bucket of each direction,
+# "never" kernels that must not run).  The bound is
 # "range" = max |x - x'| / the box's range, or "threshold" = max |x - x'|
 # / the global threshold, which is at most 7 * scales + 1: each point sums
 # one coefficient per band of its cell at every scale, and each dropped one
 # is at most the threshold.
 PYRAMID_PATH = ("haar_forward", "haar_inverse", "pyramid_forward",
                 "pyramid_inverse")
+HALVES = {"WAVELET_TPU_LAYOUT": "halves"}   # the lane-packed kernel route
 CONFIGS = [
     ("a", [f"keep={KEEP}"], [], TIMESTEPS, ("haar_forward", "haar_inverse"),
      ("range", 0.01), None),
@@ -89,6 +117,11 @@ CONFIGS = [
      ["transfer=sparse"], TIMESTEPS[:1],
      PYRAMID_PATH + ("compact_count", "compact_scatter"), ("range", 0.02),
      "b"),
+    ("e", [f"keep={KEEP}"], [], TIMESTEPS[:1],
+     ("packed_forward", "packed_inverse"), ("range", 0.01), None,
+     {"env": HALVES, "payloads_of": "a",
+      "per_bucket": ("packed_forward", "packed_inverse"),
+      "never": ("haar_forward", "haar_inverse")}),
 ]
 # TPU kernel(s) each port kernel replaces, and its source in the port (the
 # single-scale kernels are the pyramid kernels at scales=1)
@@ -108,6 +141,13 @@ KERNELS = {
                       "wavelet_tpu_torch/csrc/compact.cu"),
     "compact_scatter": ("wavelet_tpu/kernels/compact_pallas.py:484 (K9)",
                         "wavelet_tpu_torch/csrc/compact.cu"),
+    "packed_forward": ("wavelet_tpu/kernels/haar_pallas.py:242 (K3)",
+                       "wavelet_tpu_torch/csrc/packed.cu"),
+    "packed_inverse": ("wavelet_tpu/kernels/haar_pallas.py:288 (K4)",
+                       "wavelet_tpu_torch/csrc/packed.cu"),
+    "packed_forward_hist": ("wavelet_tpu/kernels/haar_pallas.py:242 (K3, "
+                            "the packed global pass with the histogram)",
+                            "wavelet_tpu_torch/csrc/packed.cu"),
 }
 
 
@@ -419,6 +459,104 @@ def phase_compact_kernels(cases) -> dict:
     return err
 
 
+def _packed_inputs(device):
+    """(name, packed tensor, P) cases for the lane-packed kernels, from
+    numpy seeds: boxes of the shape packed P to a row."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(4)
+
+    def pack(boxes, p):
+        n, x, y, z = boxes.shape
+        return np.ascontiguousarray(
+            boxes.reshape(n // p, p, x, y, z).transpose(0, 2, 3, 1, 4)
+            .reshape(n // p, x, y, p * z))
+
+    def normal(n, dims):
+        return (rng.standard_normal((n,) + dims) * 50).astype(np.float32)
+
+    cases = [(f"normal{list(PACKED_SHAPE)} P=2", normal(160, (64, 64, 64)),
+              None, 2)]
+    cases += [(f"normal[*,{x},{y},{z}] P={p}", normal(n, (x, y, z)), None, p)
+              for n, (x, y, z), p in ((6, (32, 64, 64), 2),
+                                      (128, (8, 4, 2), 64),
+                                      (16, (5, 3, 16), 8))]
+    sub = (rng.standard_normal((16, 5, 3, 16)) * 1e-37).astype(np.float32)
+    flat = sub.reshape(-1)
+    flat[::3] = (rng.standard_normal(flat[::3].size) * 1e-42).astype(
+        np.float32)
+    cases.append(("subnormal[*,5,3,16] P=8", sub, None, 8))
+    special = normal(16, (5, 3, 16))
+    special[0, 2, 1, 7] = np.array([0x7FFFFFFF], np.uint32).view(
+        np.float32)[0]
+    special[1, 4, 2, 3] = np.array([0xFFC00000], np.uint32).view(
+        np.float32)[0]
+    special[2, 0, 0, 0] = np.inf
+    special[2, 3, 1, 9] = -np.inf
+    special[3] = 0.0
+    special[3, 1, 1, 1] = -0.0
+    cases.append(("nan_inf_zeros[*,5,3,16] P=8", special, None, 8))
+    # exact tie: one nonzero at x=1 gives coefficients +1 and -1 only
+    tie = np.zeros((64, 8, 4, 2), np.float32)
+    tie[:, 1, 0, 0] = 8.0
+    cases.append(("tie[*,8,4,2] P=64", tie, "tie", 64))
+    return [(n, torch.from_numpy(pack(b, p)).to(device), kind, p)
+            for n, b, kind, p in cases]
+
+
+def phase_packed_kernels(device) -> dict:
+    """Phase 4, lane-packed kernels: each against its plain version on the
+    card; returns the largest absolute error per kernel (0.0 when bitwise
+    equal; for packed_forward_hist the larger of the coefficients' error
+    and the histograms' count difference)."""
+    import torch
+
+    from wavelet_tpu_torch.kernels import packed_cuda
+    from wavelet_tpu_torch.runtime import engine
+
+    err = dict.fromkeys(("packed_forward", "packed_inverse",
+                         "packed_forward_hist"), 0.0)
+
+    def check(kernel, name, ok, e):
+        err[kernel] = max(err[kernel], e)
+        print(f"  {kernel} {name}: bitwise={ok}")
+        if not ok:
+            raise AssertionError(f"{kernel} kernel != plain on {name}")
+
+    for name, x, kind, p in _packed_inputs(device):
+        c, mx, mn = packed_cuda.packed_forward(x, p)
+        pc, pmx, pmn = packed_cuda.packed_forward_plain(x, p)
+        torch.cuda.synchronize()
+        check("packed_forward", name,
+              _bits_equal(c, pc) and _bits_equal(mx, pmx, True)
+              and _bits_equal(mn, pmn, True),
+              max(_max_abs_err(c, pc), _max_abs_err(mx, pmx),
+                  _max_abs_err(mn, pmn)))
+        if kind == "tie":
+            rows = packed_cuda.unpack(c, p).reshape(mx.shape[0], -1)
+            rows = rows.cpu().numpy()
+            signed = engine.resolve_signed_absmax(
+                mx.cpu().numpy(), mn.cpu().numpy(),
+                row_getter=rows.__getitem__)
+            first = rows[:, abs(rows[0]).argmax()]
+            assert (signed == first).all() and (signed == 1.0).all(), signed
+        hc, hist = packed_cuda.packed_forward_hist(x, p)
+        phc, phist = packed_cuda.packed_forward_hist_plain(x, p)
+        torch.cuda.synchronize()
+        check("packed_forward_hist", name,
+              _bits_equal(hc, phc) and bool((hist == phist).all()),
+              max(_max_abs_err(hc, phc),
+                  float((hist - phist).abs().max())))
+        for what, coeffs in (("coeffs", c), ("raw", x)):
+            out = packed_cuda.packed_inverse(coeffs, p)
+            pout = packed_cuda.packed_inverse_plain(coeffs, p)
+            torch.cuda.synchronize()
+            check("packed_inverse", f"{name} ({what})",
+                  _bits_equal(out, pout), _max_abs_err(out, pout))
+    return err
+
+
 def _field(shape, origin, scale, t, q, rng):
     """One component of a synthetic AMR field on a box: smooth background,
     a tanh shock front moving with t, and small noise (float32)."""
@@ -494,43 +632,80 @@ def _tree(root):
     return out
 
 
-def _reset_launches() -> None:
-    from wavelet_tpu_torch.kernels import compact_cuda, haar_cuda, pyramid_cuda
+def _kernel_modules():
+    from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
+                                           packed_cuda, pyramid_cuda)
 
-    haar_cuda.reset_launches()
-    pyramid_cuda.reset_launches()
-    compact_cuda.reset_launches()
+    return haar_cuda, pyramid_cuda, compact_cuda, packed_cuda
+
+
+def _reset_launches() -> None:
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def _launches() -> dict:
-    from wavelet_tpu_torch.kernels import compact_cuda, haar_cuda, pyramid_cuda
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.launches)
+    return out
 
-    return {**haar_cuda.launches, **pyramid_cuda.launches,
-            **compact_cuda.launches}
+
+def _env(values: dict):
+    """Set environment variables for a block, then restore them."""
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, values)
 
 
-def _check_launched(name: str, launches: dict, expect) -> None:
-    for k in expect:
-        if launches[k] <= 0:
-            raise AssertionError(f"({name}) kernel {k} was not launched on "
-                                 f"its path ({launches})")
+def _n_buckets(data_dir: str, steps) -> int:
+    """Shape buckets of these timesteps (one batch each on this dataset)."""
+    from wavelet_tpu_torch.io import plotfile
+
+    return sum(len({tuple(d) for lev in (0, 1) for d in
+                    plotfile.read_level_meta(os.path.join(data_dir, ts),
+                                             lev)[1]})
+               for ts in steps)
+
+
+def _check_counts(name: str, launches: dict, at_least: dict,
+                  never=()) -> None:
+    for k, n in at_least.items():
+        if launches[k] < n:
+            raise AssertionError(f"({name}) kernel {k} launched "
+                                 f"{launches[k]} times, expected >= {n} "
+                                 f"({launches})")
+    for k in never:
+        if launches[k]:
+            raise AssertionError(f"({name}) kernel {k} launched "
+                                 f"{launches[k]} times off its path")
 
 
 def run_config(data_dir: str, nbytes: int, name: str, keys, d_keys, steps,
-               expect, bound, same_as, done: dict) -> dict:
+               expect, bound, same_as, done: dict, opts=None) -> dict:
     """Phase 5 for one configuration: -c/-d on cuda and cpu over the
     timesteps ``steps``, byte-compared, and against the cuda run of
-    ``same_as`` (in ``done``, the results so far) when given.  Returns
-    timings, the cuda run's per-stage seconds, link bytes and launch
-    counts, and the checks' numbers."""
-    import numpy as np
-
-    from wavelet_tpu_torch import native
-    from wavelet_tpu_torch.io import plotfile
-
+    ``same_as`` (in ``done``, the results so far) when given; ``opts`` as
+    in ``CONFIGS``.  Returns timings, the cuda run's per-stage seconds,
+    link bytes and launch counts, and the checks' numbers."""
+    opts = opts or {}
     nbytes = nbytes * len(steps) // len(TIMESTEPS)
     res = {"timesteps": len(steps), "input_bytes": nbytes}
     stats = {}
+    with _env(opts.get("env", {})):
+        _run_both(data_dir, name, keys, d_keys, steps, res, stats)
+    _check_counts(name, res["launches"], dict.fromkeys(expect, 1))
+    n_buckets = _n_buckets(data_dir, steps)
+    _check_counts(name, res["launches"],
+                  dict.fromkeys(opts.get("per_bucket", ()), n_buckets),
+                  opts.get("never", ()))
+    return _finish_config(data_dir, name, steps, bound, same_as, done, opts,
+                          res, stats, nbytes)
+
+
+def _run_both(data_dir, name, keys, d_keys, steps, res, stats) -> None:
+    """-c then -d with device=cuda, then device=cpu; the cuda run's launch
+    counts and pipeline stats go to ``res`` and ``stats``."""
     for dev in ("cuda", "cpu"):
         comp = os.path.join(WORK, f"{name}_arch_{dev}") + os.sep
         out = os.path.join(WORK, f"{name}_out_{dev}") + os.sep
@@ -546,8 +721,16 @@ def run_config(data_dir: str, nbytes: int, name: str, keys, d_keys, steps,
         res[f"{dev}_decompress_s"], ds = _run_cli(d_args)
         if dev == "cuda":
             res["launches"] = _launches()
-            stats = (cs, ds)
-    _check_launched(name, res["launches"], expect)
+            stats["c"], stats["d"] = cs, ds
+
+
+def _finish_config(data_dir, name, steps, bound, same_as, done, opts, res,
+                   stats, nbytes) -> dict:
+    import numpy as np
+
+    from wavelet_tpu_torch import native
+    from wavelet_tpu_torch.io import plotfile
+
     archives = [_tree(os.path.join(WORK, f"{name}_arch_{d}"))
                 for d in ("cuda", "cpu")]
     if archives[0] != archives[1]:
@@ -558,7 +741,7 @@ def run_config(data_dir: str, nbytes: int, name: str, keys, d_keys, steps,
     if trees[0] != trees[1] or not trees[0]:
         raise AssertionError(f"({name}) plotfiles differ between "
                              "device=cuda and cpu")
-    cs, ds = stats
+    cs, ds = stats["c"], stats["d"]
     res["device_to_host_bytes"] = cs["device_to_host_bytes"]
     res["host_to_device_bytes"] = ds["host_to_device_bytes"]
     if same_as is not None:
@@ -572,6 +755,17 @@ def run_config(data_dir: str, nbytes: int, name: str, keys, d_keys, steps,
             if not 0 < res[k] < ref[k]:
                 raise AssertionError(f"({name}) {k} {res[k]} not below "
                                      f"({same_as})'s {ref[k]}")
+    if "payloads_of" in opts:
+        ref = opts["payloads_of"]
+        ref_arch = _tree(os.path.join(WORK, f"{ref}_arch_cuda"))
+        ref_out = _tree(os.path.join(WORK, f"{ref}_out_cuda"))
+        payloads = [k for k in archives[0] if k.endswith(".xz")]
+        if (not payloads
+                or any(archives[0][k] != ref_arch.get(k) for k in payloads)
+                or any(trees[0][k] != ref_out.get(k) for k in trees[0])):
+            raise AssertionError(f"({name}) payloads or plotfiles differ "
+                                 f"from ({ref})'s")
+        res[f"payloads_equal_to_{ref}"] = len(payloads)
     res["archive_bytes"] = sum(len(b) for b in archives[0].values())
     res["plotfile_files"] = len(trees[0])
     res["native_codec"] = bool(native.available())
@@ -614,6 +808,149 @@ def run_config(data_dir: str, nbytes: int, name: str, keys, d_keys, steps,
     return res
 
 
+def _compress_cuda(data_dir: str, name: str, keys, steps, env=None):
+    """One ``-c`` with device=cuda: -> (wall s, stats, launches, archive
+    tree)."""
+    comp = os.path.join(WORK, f"{name}_arch_cuda") + os.sep
+    with _env(env or {}):
+        _reset_launches()
+        secs, stats = _run_cli([
+            f"datadir={data_dir}", f"minfile={steps[0]}",
+            f"maxfile={steps[-1]}", "minlevel=0", "maxlevel=1",
+            "components=" + " ".join(COMPONENTS), *keys,
+            f"compresseddir={comp}", "device=cuda", "-c"])
+        launches = _launches()
+    return secs, stats, launches, _tree(comp)
+
+
+def run_packed_compress(data_dir: str) -> dict:
+    """(f): ``-c`` under the halves route on the first timestep.  Global
+    thresholds (pass 1 through ``packed_forward_hist``; pass 2 packs dense
+    coefficients, as in the JAX package, so ``transfer=sparse`` changes
+    nothing there) must write the default layout's archive; box thresholds
+    with ``transfer=sparse`` (``packed_forward`` then the compaction) must
+    write (e)'s archive."""
+    steps = TIMESTEPS[:1]
+    n = _n_buckets(data_dir, steps)
+    keys = ["thresholdmode=global", "keepfraction=0.02", "transfer=sparse"]
+    _, _, ref_l, ref = _compress_cuda(data_dir, "f_default", keys, steps)
+    _check_counts("f, default layout", ref_l, {"forward_hist": n},
+                  ("packed_forward_hist",))
+    secs, stats, launches, arch = _compress_cuda(data_dir, "f", keys, steps,
+                                                 HALVES)
+    _check_counts("f", launches, {"packed_forward_hist": n},
+                  ("forward_hist", "haar_forward"))
+    if arch != ref or not arch:
+        raise AssertionError("(f) archive differs from the default "
+                             "layout's")
+    box_secs, box_stats, box_l, box_arch = _compress_cuda(
+        data_dir, "f_box", [f"keep={KEEP}", "transfer=sparse"], steps, HALVES)
+    _check_counts("f, box transfer=sparse", box_l,
+                  {"packed_forward": n, "compact_count": n,
+                   "compact_scatter": n}, ("haar_forward",))
+    if box_arch != _tree(os.path.join(WORK, "e_arch_cuda")):
+        raise AssertionError("(f) box transfer=sparse archive differs from "
+                             "(e)'s")
+    return {"global": {"cuda_compress_s": secs, "launches": launches,
+                       "global_threshold": stats["global_threshold"],
+                       "archive_bytes": sum(len(b) for b in arch.values())},
+            "box_sparse": {"cuda_compress_s": box_secs, "launches": box_l,
+                           "device_to_host_bytes":
+                               box_stats["device_to_host_bytes"]}}
+
+
+def _estimate(data_dir: str, keys, device: str, env=None):
+    """One ``-estimate`` on timestep 0, level 0: -> (result, launches)."""
+    from wavelet_tpu_torch import cli
+    from wavelet_tpu_torch.pipeline.estimate import estimate_run
+
+    mode, cfg = cli.parse_argv([
+        f"datadir={data_dir}", f"minfile={TIMESTEPS[0]}", "minlevel=0",
+        "components=" + " ".join(COMPONENTS), *keys, f"device={device}",
+        "-estimate"])
+    assert mode == "estimate"
+    with _env(env or {}):
+        _reset_launches()
+        result = estimate_run(cfg)
+        return result, _launches()
+
+
+def _metric_rows(result, prefix=()):
+    """{(sweep key, component, metric): value} of an estimate result."""
+    rows = {}
+    for k, v in result.items():
+        if isinstance(v, dict):
+            rows.update(_metric_rows(v, prefix + (k,)))
+        elif isinstance(v, float):
+            rows[prefix + (k,)] = v
+    return rows
+
+
+def run_estimates(data_dir: str) -> dict:
+    """(g): ``-estimate`` equal between device=cuda and cpu and between the
+    layouts, the packed kernels on the halves route's scratch path,
+    ``devicemetrics=1`` against the host metrics."""
+    runs = {
+        "scratch": [f"keep={KEEP}"],
+        "fast_keep_sweep": ["fastestimate=1", "keep=0.99 0.999 0.9999"],
+        "global_sweep": ["thresholdmode=global", "keepfraction=0.01 0.02"],
+    }
+    path = {"scratch": ("packed_forward", "packed_inverse"),
+            "global_sweep": ("packed_forward_hist", "packed_inverse")}
+    out = {}
+    for what, keys in runs.items():
+        results = {}
+        for layout, env in (("default", None), ("halves", HALVES)):
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                r, launches = _estimate(data_dir, keys, dev, env)
+                results[(layout, dev)] = r
+                if dev == "cuda" and layout == "halves" and what in path:
+                    _check_counts(f"g, {what}", launches,
+                                  dict.fromkeys(path[what], 1))
+                    out[f"{what}_halves_launches"] = launches
+                out[f"{what}_{layout}_{dev}_s"] = time.perf_counter() - t0
+        want = results[("default", "cuda")]
+        for key, r in results.items():
+            if r != want:
+                raise AssertionError(f"(g) {what}: {key} reports {r}, "
+                                     f"default cuda {want}")
+        out[what] = want
+    dm, _ = _estimate(data_dir, [f"keep={KEEP}", "devicemetrics=1"], "cuda")
+    host, got = _metric_rows(out["scratch"]), _metric_rows(dm)
+    if host.keys() != got.keys():
+        raise AssertionError(f"(g) devicemetrics keys {sorted(got)}")
+    worst = 0.0
+    for k, v in host.items():
+        if k[-1] == "compressed_size_pct" or k[-1] == "keep":
+            ok = got[k] == v
+        else:
+            if v:
+                worst = max(worst, abs(got[k] - v) / abs(v))
+            ok = abs(got[k] - v) <= 1e-5 * abs(v)
+        if not ok:
+            raise AssertionError(f"(g) devicemetrics {k}: {got[k]} vs host "
+                                 f"{v}")
+    out["devicemetrics_max_rel_err"] = worst
+    return out
+
+
+def run_check_info(name: str) -> dict:
+    """-check and -info on (``name``)'s device=cuda archive."""
+    import wavelet_tpu_torch
+
+    arch = os.path.join(WORK, f"{name}_arch_cuda")
+    chk = wavelet_tpu_torch.check(arch)
+    inf = wavelet_tpu_torch.info(arch)
+    n_payloads = sum(1 for k in _tree(arch) if k.endswith(".xz"))
+    if chk["errors"] or chk["files"] != n_payloads:
+        raise AssertionError(f"(-check) {chk}")
+    if inf["members"] != n_payloads or inf["missing"]:
+        raise AssertionError(f"(-info) {inf}")
+    return {"check_files": chk["files"], "info_size_pct": inf["size_pct"],
+            "info_total_bytes": inf["total_bytes"]}
+
+
 def _time_ms(fn, x, reps: int = 7, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
     calls, by CUDA events."""
@@ -647,8 +984,8 @@ def run_sparse_decompress(name: str, done: dict) -> dict:
     secs, ds = _run_cli([f"compresseddir={comp}", f"out={out}",
                          "transfer=sparse", "device=cuda", "-d"])
     launches = _launches()
-    _check_launched(f"{name}, -d transfer=sparse", launches,
-                    ("haar_inverse", "pyramid_inverse"))
+    _check_counts(f"{name}, -d transfer=sparse", launches,
+                  dict.fromkeys(("haar_inverse", "pyramid_inverse"), 1))
     if _tree(out) != _tree(os.path.join(WORK, f"{name}_out_cuda")):
         raise AssertionError(f"({name}) -d transfer=sparse plotfiles differ "
                              "from the dense run's")
@@ -792,7 +1129,63 @@ def phase_timing(device, rows) -> dict:
     rows_ms = _time_ms(h2d_stage, None)
     out["scatter_inverse"] = {"ms": rows_ms, "pair_cap": pcap,
                               "stage_gbps": dense_gb / (rows_ms / 1e3)}
+    out.update(_packed_timing(device))
     out["link_gbps"] = engine.CodecEngine._measure_link()
+    return out
+
+
+def _packed_timing(device) -> dict:
+    """The lane-packed kernels at [80, 64, 64, 128] (the main path's 64^3
+    boxes at P = 2, the bytes of K1/K2's [160, 64, 64, 64]), and at P = 64
+    beside K1/K2 on the same bytes of 8x4x2 boxes."""
+    import numpy as np
+    import torch
+
+    from wavelet_tpu_torch.kernels import haar_cuda, packed_cuda
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(PACKED_SHAPE, np.float32)).to(
+        device)
+    c = packed_cuda.packed_forward(x, 2)[0]
+    out = {
+        "packed_forward": _pair(lambda v: packed_cuda.packed_forward(v, 2),
+                                lambda v: packed_cuda.packed_forward_plain(
+                                    v, 2), x),
+        "packed_inverse": _pair(lambda v: packed_cuda.packed_inverse(v, 2),
+                                lambda v: packed_cuda.packed_inverse_plain(
+                                    v, 2), c),
+        "packed_forward_hist": _pair(
+            lambda v: packed_cuda.packed_forward_hist(v, 2),
+            lambda v: packed_cuda.packed_forward_hist_plain(v, 2), x),
+    }
+    box = x.numel() * 4
+    n_box = PACKED_SHAPE[0] * 2
+    for name, extra in (("packed_forward", 8 * n_box), ("packed_inverse", 0),
+                        ("packed_forward_hist", 2048 * 8)):
+        out[name].update(_bound(2 * box + extra), library_ms=None)
+    # P = 64: K3/K4 on packed rows of 8x4x2 boxes, K1/K2 on the same boxes
+    # one per row
+    p = P64_SHAPE[-1] // 2
+    xp = torch.from_numpy(rng.standard_normal(P64_SHAPE, np.float32)).to(
+        device)
+    xu = packed_cuda.unpack(xp, p).contiguous()
+    cp = packed_cuda.packed_forward(xp, p)[0]
+    cu = haar_cuda.fused_forward(xu)[0]
+    runs = {"haar_forward": (haar_cuda.fused_forward, xu),
+            "packed_forward": (lambda v: packed_cuda.packed_forward(v, p), xp),
+            "haar_inverse": (haar_cuda.fused_inverse, cu),
+            "packed_inverse": (lambda v: packed_cuda.packed_inverse(v, p),
+                               cp)}
+    # in turns: unpacked, packed, packed, unpacked
+    p64 = {}
+    for a, b in (("haar_forward", "packed_forward"),
+                 ("haar_inverse", "packed_inverse")):
+        t = [_time_ms(*runs[k]) for k in (a, b, b, a)]
+        p64[a] = (t[0] + t[3]) / 2
+        p64[b] = (t[1] + t[2]) / 2
+        p64[f"{a}_runs_ms"], p64[f"{b}_runs_ms"] = [t[0], t[3]], [t[1], t[2]]
+    out["p64"] = {"shape": list(P64_SHAPE), "unpacked_shape": list(xu.shape),
+                  **p64, **_bound(2 * xp.numel() * 4)}
     return out
 
 
@@ -830,6 +1223,7 @@ def main() -> int:
           f"timesteps, written in {time.perf_counter() - t0:.1f} s")
     rows = main_path_rows(data_dir, device)
     err = {**phase_kernels(device), **phase_pyramid_kernels(device),
+           **phase_packed_kernels(device),
            **phase_compact_kernels(
                _compact_edge_cases(device)
                + [(f"main path [{TIME_SHAPE[0]}, {rows[0].shape[1]}] "
@@ -838,10 +1232,11 @@ def main() -> int:
           f"(max_abs_err {err})")
     launches = dict.fromkeys(KERNELS, 0)
     done = {}
-    for name, keys, d_keys, steps, expect, bound, same_as in CONFIGS:
+    for name, keys, d_keys, steps, expect, bound, same_as, *opts in CONFIGS:
         t0 = time.perf_counter()
         e2e = done[name] = run_config(data_dir, nbytes, name, keys, d_keys,
-                                      steps, expect, bound, same_as, done)
+                                      steps, expect, bound, same_as, done,
+                                      *opts)
         for k, v in e2e["launches"].items():
             launches[k] += v
         print(f"end to end ({name}: {' '.join(keys + d_keys)}; {card}; "
@@ -852,6 +1247,18 @@ def main() -> int:
         launches[k] += v
     print(f"end to end (c, -d transfer=sparse; {card}; "
           f"{time.perf_counter() - t0:.1f} s): " + json.dumps(sd))
+    t0 = time.perf_counter()
+    f = run_packed_compress(data_dir)
+    for run in f.values():
+        for k, v in run["launches"].items():
+            launches[k] += v
+    print(f"end to end (f, -c under WAVELET_TPU_LAYOUT=halves; {card}; "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(f))
+    t0 = time.perf_counter()
+    g = run_estimates(data_dir)
+    g.update(run_check_info("a"))
+    print(f"estimate, check, info (g; {card}; "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(g))
     timing = phase_timing(device, rows)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="

@@ -5,8 +5,10 @@
 
 Writes ``chip_smoke.py``'s synthetic dataset (both timesteps), then for
 each of its configurations ((a)-(c) dense, (d) ``scales=2
-transfer=sparse`` on ``-c`` and ``-d``) runs ``-c`` and ``-d`` with
-``device=cuda`` once to warm up and once under ``torch.profiler``.  For
+transfer=sparse`` on ``-c`` and ``-d``, (e) (a) under
+``WAVELET_TPU_LAYOUT=halves``, the lane-packed kernels) runs ``-c`` and
+``-d`` with ``device=cuda`` once to warm up and once under
+``torch.profiler``.  For
 each run it
 reports the wall seconds of the profiled run, the device busy time (the
 union of the CUDA activity intervals: kernels, copies, memsets), the idle
@@ -90,7 +92,9 @@ def main(argv=None) -> int:
     chip_smoke.make_dataset(data_dir)
     steps = chip_smoke.TIMESTEPS
     report = {"card": card}
-    for name, keys, d_keys, *_ in chip_smoke.CONFIGS:
+    for name, keys, d_keys, _steps, _expect, _bound, _same, *extra in \
+            chip_smoke.CONFIGS:
+        env = extra[0].get("env", {}) if extra else {}
         comp = os.path.join(WORK, f"{name}_arch") + os.sep
         out = os.path.join(WORK, f"{name}_out") + os.sep
         c_args = [f"datadir={data_dir}", f"minfile={steps[0]}",
@@ -100,7 +104,8 @@ def main(argv=None) -> int:
         d_args = [f"compresseddir={comp}", f"out={out}", *d_keys,
                   "device=cuda", "-d"]
         for what, args in (("compress", c_args), ("decompress", d_args)):
-            r = report[f"{name}_{what}"] = _profiled(args)
+            with chip_smoke._env(env):
+                r = report[f"{name}_{what}"] = _profiled(args)
             print(f"{name} {what}: wall {r['wall_s']:.3f} s, device busy "
                   f"{r['device_busy_ms']:.1f} ms, idle share "
                   f"{r['idle_share']:.4f}")

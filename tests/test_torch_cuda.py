@@ -16,7 +16,7 @@ torch.set_num_threads(2)
 
 from wavelet_tpu_torch.runtime import batching  # noqa: E402
 from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,  # noqa: E402
-                                       pyramid_cuda)
+                                       packed_cuda, pyramid_cuda)
 from wavelet_tpu_torch.runtime import engine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -226,3 +226,75 @@ def test_engine_sparse_cuda_equals_cpu(cuda_device, dims, scales, tmp_path):
         np.testing.assert_array_equal(a, ca)
         np.testing.assert_array_equal(b.view(np.int32), cb.view(np.int32))
     np.testing.assert_array_equal(r.view(np.int32), cr.view(np.int32))
+
+
+def _packed_rows(dims, pack, rows, seed):
+    x, y, z = dims
+    b = _batch((pack * rows,) + tuple(dims), seed)
+    return np.ascontiguousarray(
+        b.reshape(rows, pack, x, y, z).transpose(0, 2, 3, 1, 4)
+        .reshape(rows, x, y, pack * z))
+
+
+@pytest.mark.parametrize("dims,pack,rows", [((64, 64, 64), 2, 2),
+                                            ((32, 64, 64), 2, 3),
+                                            ((8, 4, 2), 64, 2),
+                                            ((5, 3, 16), 8, 2),
+                                            ((3, 3, 6), 2, 3)])
+def test_packed_kernels_match_plain(cuda_device, dims, pack, rows):
+    x = torch.from_numpy(_packed_rows(dims, pack, rows, 8)).to(cuda_device)
+    c, mx, mn = packed_cuda.packed_forward(x, pack)
+    pc, pmx, pmn = packed_cuda.packed_forward_plain(x, pack)
+    np.testing.assert_array_equal(_bits(c), _bits(pc))
+    np.testing.assert_array_equal(_bits(mx), _bits(pmx))
+    np.testing.assert_array_equal(_bits(mn), _bits(pmn))
+    hc, hist = packed_cuda.packed_forward_hist(x, pack)
+    np.testing.assert_array_equal(_bits(hc), _bits(pc))
+    np.testing.assert_array_equal(
+        hist.cpu().numpy(),
+        packed_cuda.packed_forward_hist_plain(x, pack)[1].cpu().numpy())
+    for coeffs in (c, x):
+        np.testing.assert_array_equal(
+            _bits(packed_cuda.packed_inverse(coeffs, pack)),
+            _bits(packed_cuda.packed_inverse_plain(coeffs, pack)))
+
+
+def test_packed_launches_count(cuda_device):
+    before = dict(packed_cuda.launches)
+    x = torch.from_numpy(_packed_rows((4, 4, 16), 8, 1, 9)).to(cuda_device)
+    c, _, _ = packed_cuda.packed_forward(x, 8)
+    packed_cuda.packed_forward_hist(x, 8)
+    packed_cuda.packed_inverse(c, 8)
+    for k in ("packed_forward", "packed_forward_hist", "packed_inverse"):
+        assert packed_cuda.launches[k] == before[k] + 1
+
+
+@pytest.mark.parametrize("dims,n", [((4, 8, 16), 5), ((8, 4, 2), 3),
+                                    ((5, 3, 16), 9)])
+def test_engine_halves_cuda_equals_cpu(cuda_device, dims, n):
+    items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=b)
+             for b in range(n)]
+    data = _batch((n,) + dims, 10)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        eng = engine.CodecEngine(device=dev, layout="halves")
+        [batch] = batching.plan_batches(
+            [(it, data[i]) for i, it in enumerate(items)],
+            pack_fn=eng.pack_factor)
+        assert batch.pack > 1
+        cb, t32 = eng.compress_shapebatch(batch, 0.999)
+        hb, hist = eng.forward_hist_shapebatch(batch)
+        sparse, st32 = eng.compress_shapebatch_sparse(batch, 0.999)
+        outs.append((cb.data, t32, hb.data, hist, sparse.counts, st32,
+                     eng.decompress_shapebatch(cb).data))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                      np.asarray(b).view(np.int32))
+
+
+def test_rmse_batch_cuda_close_to_cpu(cuda_device):
+    a = _batch((3, 64, 32, 5), 11)
+    b = (a + _batch((3, 64, 32, 5), 12) * 1e-5).astype(np.float32)
+    got = engine.CodecEngine(device="cuda").rmse_batch(a, b)
+    want = engine.CodecEngine(device="cpu").rmse_batch(a, b)
+    np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -5,8 +5,10 @@ A subprocess makes ``import jax`` fail (``sys.modules["jax"] = None``),
 writes a tiny dataset with the port's own ``plotfile``, runs ``-c`` / ``-d``
 with ``device=cpu`` (box thresholds dense and with ``transfer=sparse``, then
 global thresholds on a 2-scale pyramid, decompressed with
-``transfer=sparse``), and reports every module of jax or of ``wavelet_tpu``
-that got loaded.  A source scan refuses any import of either in the port,
+``transfer=sparse``, then box and global thresholds on the lane-packed
+route, ``WAVELET_TPU_LAYOUT=halves``), ``-estimate`` (scratch and
+``fastestimate=1`` with ``devicemetrics=1``), ``-check`` and ``-info``,
+and reports every module of jax or of ``wavelet_tpu`` that got loaded.  A source scan refuses any import of either in the port,
 ``chip_smoke.py`` and ``profile_runs.py``.
 """
 
@@ -54,6 +56,19 @@ for arch, keys, d_transfer in runs:
     regen = plotfile.read_level(f"{root}/o_{arch}/plt00001", 0, [0, 1])
     assert [b.shape for b in regen.boxes] == [(2, 8, 4, 2), (2, 3, 5, 7),
                                               (2, 8, 8, 8)]
+os.environ["WAVELET_TPU_LAYOUT"] = "halves"
+for arch, keys in (("arch_h", ["keep=0.999"]),
+                   ("arch_hg", ["thresholdmode=global", "keepfraction=0.1"])):
+    assert cli.main(c_args[:-2] + keys + [f"compresseddir={root}/{arch}/"]
+                    + c_args[-2:]) == 0
+    assert cli.main([f"compresseddir={root}/{arch}/", f"out={root}/o_{arch}/",
+                     "device=cpu", "-d"]) == 0
+est = [c_args[0], c_args[1], c_args[3], c_args[5], "keep=0.99 0.999"]
+assert cli.main(est + ["device=cpu", "-estimate"]) == 0
+assert cli.main(est + ["fastestimate=1", "devicemetrics=1", "device=cpu",
+                       "-estimate"]) == 0
+assert cli.main([f"compresseddir={root}/arch_h/", "-check"]) == 0
+assert cli.main([f"compresseddir={root}/arch_h/", "-info"]) == 0
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and (m.split(".")[0] in ("jax", "jaxlib",
                                                             "wavelet_tpu")))

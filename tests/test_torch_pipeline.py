@@ -172,11 +172,11 @@ def test_cli_device_cuda_raises_without_cuda(runs, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["processes=2", "-c"],
-    ["fastestimate=1", "-c"],
+    ["giantbox=1024", "-c"],
     ["preview=1", "-d"],
     ["devices=2", "-c"],
-    ["-estimate"],
-    ["-check"],
+    ["devices=2", "-estimate"],
+    ["profile=/tmp/trace", "-c"],
 ])
 def test_cli_unported_modes_raise(argv):
     with pytest.raises(NotImplementedError):

@@ -8,19 +8,21 @@ It keeps the JAX package's module names, so each part has a counterpart:
 - ``kernels``   hand-written CUDA kernels (``csrc/``), built with nvcc at
                 first use, with their wrappers and launch counts;
 - ``runtime``   the device codec engine, the host packer, batching;
-- ``pipeline``  the compress / decompress modes;
+- ``pipeline``  the compress / decompress / estimate modes and the archive
+                check and summary;
 - ``io``, ``native``  plotfile and archive I/O, the native host codec;
 - ``api``, ``cli``  the entry points.
 
 Host-side code with no backend in it (``io``, ``native``, ``core/rle``,
-``runtime/batching``, ``runtime/debug.phase_timer``) is a copy of the JAX
+``core/metrics``, ``runtime/batching``, ``runtime/debug.phase_timer``,
+``pipeline/check``) is a copy of the JAX
 package's, unchanged but for its imports: nothing here imports jax or
 ``wavelet_tpu``.
 """
 
 __version__ = "0.1.0"
 
-_API_NAMES = ("compress", "decompress")
+_API_NAMES = ("compress", "decompress", "estimate", "check", "info")
 
 
 def __getattr__(name):

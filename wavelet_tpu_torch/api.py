@@ -13,7 +13,9 @@ keyword names: ``threshold_mode="global", keep_fraction=0.02, scales=2,
 global_cache_bytes=...``, ``transfer="dense"|"sparse"|"auto"`` (for both
 calls).  Every other knob is a keyword named after its
 :class:`~wavelet_tpu_torch.pipeline.common.Config` field; unknown names
-raise ``TypeError``.  Both return the pipeline's stats dict.
+raise ``TypeError``.  :func:`estimate` (CLI ``-estimate``), :func:`check`
+(``-check``) and :func:`info` (``-info``) are the JAX package's calls of
+the same names.  Each returns the pipeline's stats or result dict.
 """
 
 from __future__ import annotations
@@ -21,11 +23,14 @@ from __future__ import annotations
 from dataclasses import fields as _dc_fields
 
 from wavelet_tpu_torch.pipeline import common as _common
+from wavelet_tpu_torch.pipeline.check import check_run as _check_run
+from wavelet_tpu_torch.pipeline.check import info_run as _info_run
 from wavelet_tpu_torch.pipeline.compress import compress_run as _compress_run
 from wavelet_tpu_torch.pipeline.decompress import \
     decompress_run as _decompress_run
+from wavelet_tpu_torch.pipeline.estimate import estimate_run as _estimate_run
 
-__all__ = ["compress", "decompress"]
+__all__ = ["compress", "decompress", "estimate", "check", "info"]
 
 _CFG_FIELDS = {f.name for f in _dc_fields(_common.Config)}
 
@@ -61,3 +66,32 @@ def decompress(compressed_dir: str, out_dir: str, *, device: str = "cuda",
     cfg = _build_config(dict(compressed_dir=compressed_dir, out_dir=out_dir,
                              device=device), options)
     return _decompress_run(cfg)
+
+
+def estimate(data_dir: str, *, min_time: str, components: list,
+             max_time: str | None = None, min_level: int = 0,
+             max_level: int | None = None, keep: float = 0.999,
+             device: str = "cuda", **options) -> dict:
+    """Quality/size estimate without keeping an archive (CLI -estimate).
+
+    Sweeps: ``keep_sweep=[k1, k2, ...]`` (box mode) or
+    ``keep_fraction_sweep=[f1, ...]`` with ``threshold_mode="global"``;
+    ``fast_estimate=True`` skips the scratch archive, ``device_metrics=True``
+    takes the RMSE on the device."""
+    cfg = _build_config(dict(
+        data_dir=data_dir, min_time=min_time,
+        max_time=min_time if max_time is None else max_time,
+        components=list(components), min_level=min_level,
+        max_level=min_level if max_level is None else max_level,
+        keep=keep, device=device), options)
+    return _estimate_run(cfg)
+
+
+def check(compressed_dir: str) -> dict:
+    """Validate archive integrity without decompressing (CLI -check)."""
+    return _check_run(_common.Config(compressed_dir=compressed_dir))
+
+
+def info(compressed_dir: str) -> dict:
+    """Summarize an archive from sidecar metadata alone (CLI -info)."""
+    return _info_run(_common.Config(compressed_dir=compressed_dir))

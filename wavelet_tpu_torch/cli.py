@@ -1,9 +1,10 @@
 """Reference-compatible command line for the PyTorch port.
 
 Same ``key=value`` grammar as the C++ tool and ``wavelet_tpu.cli`` for the
-``-c`` / ``-d`` modes, with the JAX package's rules and messages for its
-extension keys, plus one key, ``device=cuda|cpu`` (default ``cuda``,
-which raises when CUDA is unavailable)::
+``-c`` / ``-d`` / ``-estimate`` / ``-check`` / ``-info`` modes, with the
+JAX package's rules and messages for its extension keys, plus one key,
+``device=cuda|cpu`` (default ``cuda``, which raises when CUDA is
+unavailable)::
 
     python -m wavelet_tpu_torch.cli datadir=... minfile=plt00074 \
         maxfile=plt00075 minlevel=0 maxlevel=1 components="temp pressure" \
@@ -13,10 +14,14 @@ which raises when CUDA is unavailable)::
     python -m wavelet_tpu_torch.cli compresseddir=out/ out=regen/ -d
     python -m wavelet_tpu_torch.cli compresseddir=out/ out=regen/ \
         transfer=sparse -d
+    python -m wavelet_tpu_torch.cli datadir=... minfile=plt00074 \
+        minlevel=0 components="temp" keep="0.99 0.999" fastestimate=1 \
+        -estimate
+    python -m wavelet_tpu_torch.cli compresseddir=out/ -check
 
-``transfer=dense|sparse|auto`` works on ``-c`` and ``-d``.  Modes and keys
-not yet ported (``-estimate``, ``-check``, ``-info``, preview,
-multi-device and multi-process keys) raise ``NotImplementedError``.
+``transfer=dense|sparse|auto`` works on ``-c`` and ``-d``.  Keys not yet
+ported (preview, multi-device and multi-process keys) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,11 +39,14 @@ log = logging.getLogger("wavelet_tpu_torch")
 _USAGE = """wavelet_tpu_torch — wavelet compression for AMReX plotfiles on PyTorch
 
 Modes (one required):
-  -c   compress     datadir= minfile= maxfile= minlevel= maxlevel=
-                    components="..." keep= compresseddir=
-  -d   decompress   compresseddir= out=
-                    [minfile=/maxfile=/components=/maxlevel= partial
-                     retrieval] [outprec=f64|f32 FAB real width]
+  -c         compress     datadir= minfile= maxfile= minlevel= maxlevel=
+                          components="..." keep= compresseddir=
+  -d         decompress   compresseddir= out=
+                          [minfile=/maxfile=/components=/maxlevel= partial
+                           retrieval] [outprec=f64|f32 FAB real width]
+  -estimate  quality/size estimate (compress keys; maxfile/maxlevel optional)
+  -check     archive integrity validation        compresseddir=
+  -info      archive summary (no decode)         compresseddir=
 
 Keys: device=cuda|cpu (default cuda)  payload=f32|q16  codec=xz|raw
       xzpreset=N  xzdelta=D  archive=files|bundle  prefetch=0|1  resume=1
@@ -50,13 +58,17 @@ Keys: device=cuda|cpu (default cuda)  payload=f32|q16  codec=xz|raw
       transfer=dense|sparse|auto (-c and -d; sparse: compact on the
       device, only kept (index, value) pairs cross the link; auto:
       sparse iff the measured link is below the device-stage breakeven)
+      fastestimate=1 (-estimate in memory)  devicemetrics=1 (-estimate
+      RMSE on the device)
+Sweeps (-estimate only): keep="k1 k2 ..." or keepfraction="f1 f2 ..."
+Kernel route: WAVELET_TPU_LAYOUT=auto|interleaved|halves (halves: the
+lane-packed kernels at scales=1)
 """
 
 # keys of wavelet_tpu.cli whose non-default values this port does not run
 _UNPORTED = {"preview": "0", "devices": "1",
              "coordinator": None, "processes": None, "processid": None,
-             "giantbox": None, "giantmesh": "local", "fastestimate": "0",
-             "devicemetrics": "0", "profile": None}
+             "giantbox": None, "giantmesh": "local", "profile": None}
 
 
 def _kv(args):
@@ -69,23 +81,27 @@ def _kv(args):
 
 
 def parse_argv(argv):
-    """-> (mode, Config); mode in {'c', 'd'}."""
+    """-> (mode, Config); mode in {'c', 'd', 'estimate', 'check',
+    'info'}."""
     flags = {a for a in argv if a.startswith("-")}
     kv = _kv(argv)
     if "-h" in flags or "--help" in flags:
         raise SystemExit(_USAGE)
-    for other in ("-estimate", "-check", "-info"):
-        if other in flags:
-            raise NotImplementedError(
-                f"{other} mode is not yet ported to wavelet_tpu_torch "
-                "(use wavelet_tpu.cli)")
     if "-c" in flags:
         mode = "c"
+    elif "-estimate" in flags:
+        mode = "estimate"
     elif "-d" in flags:
         mode = "d"
+    elif "-check" in flags:
+        mode = "check"
+    elif "-info" in flags:
+        mode = "info"
     else:
-        raise SystemExit("Specify a mode: -c for compression or -d for "
-                         "decompression! (-h for usage)")
+        raise SystemExit("Specify a mode: -c for compression, -d for "
+                         "decompression, -estimate for estimate mode, "
+                         "-check for archive validation, or -info for an "
+                         "archive summary! (-h for usage)")
     for key, default in _UNPORTED.items():
         if key in kv and kv[key] != default:
             raise NotImplementedError(
@@ -118,26 +134,33 @@ def parse_argv(argv):
         raise SystemExit(f"Unknown device={cfg.device!r} (cuda|cpu)")
     cfg.prefetch = int(kv.get("prefetch", "0"))
     cfg.transfer = transfer_key()
-    if mode == "c":
+    if mode in ("c", "estimate"):
         cfg.data_dir = need("datadir")
         cfg.min_time = need("minfile")
-        cfg.max_time = need("maxfile")
+        cfg.max_time = (need("maxfile") if mode == "c"
+                        else kv.get("maxfile", kv["minfile"]))
         cfg.min_level = int(need("minlevel"))
-        cfg.max_level = int(need("maxlevel"))
+        cfg.max_level = (int(need("maxlevel")) if mode == "c"
+                         else int(kv.get("maxlevel", kv["minlevel"])))
         cfg.components = need("components").split()
         if not cfg.components:
             raise SystemExit("components= must name at least one component")
         cfg.resume = kv.get("resume", "0") in ("1", "true", "yes")
         cfg.scales = int(kv.get("scales", "1"))
         cfg.global_cache_bytes = globalcache_key()
+        cfg.device_metrics = kv.get("devicemetrics", "0") == "1"
+        cfg.fast_estimate = kv.get("fastestimate", "0") == "1"
         cfg.threshold_mode = kv.get("thresholdmode", "box")
         if cfg.threshold_mode == "global":
             fracs = [float(v) for v in need("keepfraction").split()]
             if not fracs:
                 raise SystemExit("Missing keepfraction!")
             if len(fracs) > 1:
-                raise SystemExit("keepfraction sweep (several values) is "
-                                 "only valid with -estimate")
+                if mode != "estimate":
+                    raise SystemExit(
+                        "keepfraction sweep (several values) is only "
+                        "valid with -estimate")
+                cfg.keep_fraction_sweep = fracs
             cfg.keep_fraction = fracs[0]
             if len(kv.get("keep", "0.999").split()) > 1:
                 raise SystemExit("keep sweep requires the box threshold "
@@ -149,15 +172,22 @@ def parse_argv(argv):
             if not keeps:
                 raise SystemExit("Missing keep!")
             if len(keeps) > 1:
-                raise SystemExit("keep sweep (several keep values) is only "
-                                 "valid with -estimate")
+                if mode != "estimate":
+                    # a compression run writes ONE archive at ONE keep
+                    raise SystemExit(
+                        "keep sweep (several keep values) is only valid "
+                        "with -estimate")
+                cfg.keep_sweep = keeps
             cfg.keep = keeps[0]
-        cfg.compressed_dir = need("compresseddir")
+        cfg.compressed_dir = (need("compresseddir") if mode == "c"
+                              else kv.get("compresseddir", ""))
         cfg.payload = kv.get("payload", "f32")
         cfg.codec = kv.get("codec", "xz")
         cfg.xz_preset = int(kv.get("xzpreset", "6"))
         cfg.xz_delta = int(kv.get("xzdelta", "0"))
         cfg.archive = kv.get("archive", "files")
+    elif mode in ("check", "info"):
+        cfg.compressed_dir = need("compresseddir")
     else:
         cfg.compressed_dir = need("compresseddir")
         cfg.out_dir = need("out")
@@ -193,12 +223,21 @@ def main(argv=None):
         log.error("bad argument: %s", e)
         return 1
 
+    from wavelet_tpu_torch.pipeline.check import check_run, info_run
     from wavelet_tpu_torch.pipeline.compress import compress_run
     from wavelet_tpu_torch.pipeline.decompress import decompress_run
+    from wavelet_tpu_torch.pipeline.estimate import estimate_run
 
     try:
         if mode == "c":
             compress_run(cfg)
+        elif mode == "estimate":
+            estimate_run(cfg)
+        elif mode == "check":
+            if check_run(cfg)["errors"]:
+                return 1
+        elif mode == "info":
+            info_run(cfg)
         else:
             decompress_run(cfg)
     except (KeyError, ValueError, OSError) as e:

@@ -28,11 +28,9 @@
 // subnormals are kept and the result is bitwise that of the reference's
 // loops.  Only scale 0 may have odd extents.
 //
-// Design.  Along an axis of length n (h = n/2) the transform pairs (2i,
-// 2i+1) and writes low to i and high to h+i; an odd tail stays at n-1.  So
-// the three passes of one 2x2x2 cell of the half-grid read only that cell
-// and write 8 outputs: one thread per cell runs all three passes in
-// registers.  Cells on an odd tail are 1 wide along that axis (the tail
+// Design.  The three passes of one 2x2x2 cell of the half-grid read only
+// that cell and write 8 outputs (haar_cell.cuh): one thread per cell runs
+// all three passes in registers.  Cells on an odd tail are 1 wide along that axis (the tail
 // still goes through the other axes' passes; the inverse writes zeros
 // there).  Neighbouring threads take neighbouring k, so loads (float2
 // along Z where Z is even) and stores coalesce.
@@ -66,26 +64,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "haar_cell.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGridY = 65535;
-constexpr int kHistBins = 2048;
-constexpr int kHistShift = 20;
 // Blocks of one histogram launch: each flushes its table once, so a
 // launch is capped near this many blocks (the box loop covers the rest).
 constexpr int kHistMaxBlocks = 4096;
 
 enum Mode { kReduce = 0, kHist = 1 };
-
-__device__ __forceinline__ float pair_lo(float a, float b) {
-    return __fmul_rn(__fadd_rn(a, b), 0.5f);
-}
-
-__device__ __forceinline__ float pair_hi(float a, float b) {
-    return __fmul_rn(__fsub_rn(a, b), 0.5f);
-}
 
 // NaN-propagating max / min: once a NaN is seen it stays.
 __device__ __forceinline__ float nan_max(float m, float v) {
@@ -120,101 +110,6 @@ __device__ __forceinline__ void block_max_min(float& mx, float& mn) {
         }
     }
     __syncthreads();  // s_max/s_min are reused by the caller's next box
-}
-
-struct Cell {
-    int i, j, k;      // cell coordinates in the half-grid
-    int wx, wy, wz;   // 2 for a pair, 1 for an odd tail
-};
-
-__device__ __forceinline__ Cell cell_of(long long cell, int X, int Y, int Z) {
-    const int cy = (Y >> 1) + (Y & 1);
-    const int cz = (Z >> 1) + (Z & 1);
-    Cell c;
-    c.k = (int)(cell % cz);
-    const long long r = cell / cz;
-    c.j = (int)(r % cy);
-    c.i = (int)(r / cy);
-    c.wx = (c.i < (X >> 1)) ? 2 : 1;
-    c.wy = (c.j < (Y >> 1)) ? 2 : 1;
-    c.wz = (c.k < (Z >> 1)) ? 2 : 1;
-    return c;
-}
-
-// Coefficient position of slot s (0 = low/avg, 1 = high/diff) of cell
-// index i along an axis of length n; a tail cell's one slot is n-1.
-__device__ __forceinline__ int coeff_pos(int i, int s, int w, int n) {
-    return (w == 1) ? (n - 1) : (s == 0 ? i : (n >> 1) + i);
-}
-
-// Forward Z, Y, X passes of one cell in registers (v[x][y][z]).
-__device__ __forceinline__ void cell_forward(float (&v)[2][2][2],
-                                             const Cell& q) {
-    if (q.wz == 2) {
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-                const float lo = pair_lo(v[a][b][0], v[a][b][1]);
-                const float hi = pair_hi(v[a][b][0], v[a][b][1]);
-                v[a][b][0] = lo;
-                v[a][b][1] = hi;
-            }
-    }
-    if (q.wy == 2) {
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-            for (int s = 0; s < 2; ++s) {
-                const float lo = pair_lo(v[a][0][s], v[a][1][s]);
-                const float hi = pair_hi(v[a][0][s], v[a][1][s]);
-                v[a][0][s] = lo;
-                v[a][1][s] = hi;
-            }
-    }
-    if (q.wx == 2) {
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-#pragma unroll
-            for (int s = 0; s < 2; ++s) {
-                const float lo = pair_lo(v[0][b][s], v[1][b][s]);
-                const float hi = pair_hi(v[0][b][s], v[1][b][s]);
-                v[0][b][s] = lo;
-                v[1][b][s] = hi;
-            }
-    }
-}
-
-// Inverse X, Y, Z passes of one full (2x2x2) cell: (avg, diff) -> (even,
-// odd) along each axis.
-__device__ __forceinline__ void cell_inverse(float (&v)[2][2][2]) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-            const float e = __fadd_rn(v[0][b][s], v[1][b][s]);
-            const float o = __fsub_rn(v[0][b][s], v[1][b][s]);
-            v[0][b][s] = e;
-            v[1][b][s] = o;
-        }
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-            const float e = __fadd_rn(v[a][0][s], v[a][1][s]);
-            const float o = __fsub_rn(v[a][0][s], v[a][1][s]);
-            v[a][0][s] = e;
-            v[a][1][s] = o;
-        }
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-            const float e = __fadd_rn(v[a][b][0], v[a][b][1]);
-            const float o = __fsub_rn(v[a][b][0], v[a][b][1]);
-            v[a][b][0] = e;
-            v[a][b][1] = o;
-        }
 }
 
 // One scale of the forward pyramid.  src: compact [n_box, cx, cy, cz];
@@ -301,9 +196,7 @@ pyramid_forward_scale_kernel(const float* __restrict__ src,
                             mx = nan_max(mx, val);
                             mn = nan_min(mn, val);
                         } else {
-                            atomicAdd(&s_hist[(__float_as_uint(val) &
-                                               0x7FFFFFFFu) >> kHistShift],
-                                      1u);
+                            atomicAdd(&s_hist[hist_bin(val)], 1u);
                         }
                     }
         }

@@ -1,11 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and load them.
 
 The sources in ``wavelet_tpu_torch/csrc/*.cu`` have a plain C interface,
-so they compile in seconds without PyTorch's headers, all in one ``nvcc``
-call into one shared library.  The library
-goes to ``build/wavelet_tpu_torch/`` at the root of the checkout, under a
-name keyed by a hash of the sources and flags, and is loaded with
-``ctypes``.  Nothing is built when this module is imported.
+so they compile in seconds without PyTorch's headers: one ``nvcc`` per
+source, all started together, then one link into one shared library.  The
+library goes to ``build/wavelet_tpu_torch/`` at the root of the checkout,
+under a name keyed by a hash of the sources, headers and flags, and is
+loaded with ``ctypes``.  Nothing is built when this module is imported.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and the arithmetic flags the codec's
 bit-exactness needs — no FMA contraction, no flush of subnormals, IEEE
@@ -31,7 +31,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wavelet_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "--fmad=false", "-ftz=false", "-prec-div=true",
-              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
+              "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -58,10 +58,42 @@ def _sources():
 
 def _lib_path(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
     return os.path.join(_BUILD_DIR, f"libwt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; -> their joined output.  Raises on
+    the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + out)
+    return "".join(outs)
+
+
+def _build(srcs, path: str) -> str:
+    """Compile every source at once, link them into ``path``; -> nvcc's
+    output."""
+    tmp = f"{path}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s]
+                        for s, o in zip(srcs, objs)])
+        log += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                          f"{tmp}.tmp", *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    os.replace(f"{tmp}.tmp", path)   # concurrent builds never load a torn file
+    return log
 
 
 def _bind(lib) -> None:
@@ -83,6 +115,12 @@ def _bind(lib) -> None:
     lib.wt_compact_count.restype = i32
     lib.wt_compact_scatter.argtypes = [vp] * 5 + [i32] * 3 + [vp]
     lib.wt_compact_scatter.restype = i32
+    lib.wt_packed_forward.argtypes = [vp] * 5 + [i32] * 5 + [vp]
+    lib.wt_packed_forward.restype = i32
+    lib.wt_packed_forward_hist.argtypes = [vp] * 3 + [i32] * 5 + [vp]
+    lib.wt_packed_forward_hist.restype = i32
+    lib.wt_packed_inverse.argtypes = [vp] * 2 + [i32] * 5 + [vp]
+    lib.wt_packed_inverse.restype = i32
 
 
 def library():
@@ -97,15 +135,7 @@ def library():
         path = _lib_path(srcs)
         if not os.path.exists(path):
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed:\n" + " ".join(cmd) + "\n" + proc.stdout +
-                    proc.stderr)
-            build_log = proc.stdout + proc.stderr
-            os.replace(tmp, path)   # concurrent builders never load a torn file
+            build_log = _build(srcs, path)
         lib = ctypes.CDLL(path)
         _bind(lib)
         _lib = lib

@@ -1,10 +1,12 @@
-"""Shared pipeline pieces: config, file/level discovery, run metadata.
+"""Shared pipeline pieces: config, file/level discovery, run metadata and
+in-memory run data.
 
 Counterpart of ``wavelet_tpu.pipeline.common``, which is jax-free itself but
 cannot be imported without jax: its package ``__init__`` imports the
 compress pipeline.  The CLI contract mirrors the reference (argparse.cpp):
 ``datadir= minfile= maxfile= minlevel= maxlevel= components="..." keep=
-compresseddir= out=`` plus ``-c``/``-d``; missing keys raise.
+compresseddir= out=`` plus ``-c``/``-d``/``-estimate``; missing keys
+raise.
 """
 
 from __future__ import annotations
@@ -17,14 +19,14 @@ import numpy as np
 from wavelet_tpu_torch.io import archive, plotfile
 
 __all__ = ["Config", "clean_string", "format_files", "format_levels",
-           "RunMeta", "collect_run_meta"]
+           "RunData", "collect_run", "RunMeta", "collect_run_meta"]
 
 
 @dataclass
 class Config:
     """Reference ``Config`` (argparse.h:7-16) plus the extension keys the
     port runs, under the JAX package's names.  Its other keys
-    (``preview``, multi-device and estimate keys, ...) are not ported: the
+    (``preview``, multi-device and multi-process keys) are not ported: the
     port runs on one device."""
 
     data_dir: str = ""
@@ -60,6 +62,13 @@ class Config:
                                       #   measured link is slower than the
                                       #   device stage's breakeven,
                                       #   engine.transfer_mode)
+    device_metrics: bool = False      # estimate: RMSE on the device (f32
+                                      #   chunked sums) instead of the
+                                      #   host's double accumulation
+    fast_estimate: bool = False       # estimate in memory (no scratch dir)
+    keep_sweep: list | None = None    # estimate: several keeps in one run
+    keep_fraction_sweep: list | None = None  # estimate + global: several
+                                      #   keepfractions in one run
     device: str = "cuda"              # "cuda" (kernels) | "cpu" (plain)
 
 
@@ -121,6 +130,23 @@ def _select_ref_ratio(h, levels, fname: str) -> list:
     return [r, r, r]
 
 
+@dataclass
+class RunData:
+    """Everything one in-memory run needs (reference ``AllData``,
+    box-structs.h:53-62): per (t, lev) box lists + geometry sidecar info.
+    ``components`` holds the selected names in plotfile-Header order, the
+    order of ``comp_idxs`` and of every per-component array."""
+
+    levels_data: list          # [t][lev] -> plotfile.LevelBoxes
+    comp_idxs: list            # header indices of selected components
+    components: list           # selected names, Header order
+    min_values: np.ndarray     # per component, over the whole run
+    max_values: np.ndarray
+    amrexinfo: archive.AMReXInfo
+    files: list
+    levels: list
+
+
 def collect_run_meta(files, components, levels) -> RunMeta:
     """Metadata-only preprocessing pass (geometry of preprocess.cpp:107-307
     without the box-data copies)."""
@@ -154,4 +180,42 @@ def collect_run_meta(files, components, levels) -> RunMeta:
                              base_dims[0], base_dims[1], base_dims[2])
     return RunMeta(locations=locations, dimensions=dimensions, counts=counts,
                    comp_idxs=comp_idxs, components=names_ordered,
+                   amrexinfo=info, files=list(files), levels=list(levels))
+
+
+def collect_run(files, components, levels) -> RunData:
+    """Read the selected (timestep, level) slices of all plotfiles into
+    memory (reference ``preprocess_data``, preprocess.cpp:107-307)."""
+    levels_data = []
+    comp_idxs = None
+    minv = np.full(len(components), np.inf, np.float64)
+    maxv = np.full(len(components), -np.inf, np.float64)
+    geom, true_times, lvl_steps = [], [], []
+    ref_ratios = None
+    base_dims = None
+    names_ordered = list(components)
+    for f in files:
+        h = plotfile.read_header(f)
+        if comp_idxs is None:
+            comp_idxs = h.component_indices(components)
+            names_ordered = [h.component_names[i] for i in comp_idxs]
+            ref_ratios = _select_ref_ratio(h, levels, f)
+            base_dims = h.domain_dims(0)
+        geom.append(list(h.prob_lo) + list(h.prob_hi))
+        true_times.append(np.longdouble(h.time_str))
+        lvl_steps.append([h.level_steps[l] if l < len(h.level_steps) else 0
+                          for l in levels])
+        per_lev = []
+        for lev in levels:
+            lv = plotfile.read_level(f, lev, comp_idxs)
+            per_lev.append(lv)
+            minv = np.minimum(minv, lv.min_values.astype(np.float64))
+            maxv = np.maximum(maxv, lv.max_values.astype(np.float64))
+        levels_data.append(per_lev)
+    info = archive.AMReXInfo(geom, ref_ratios, true_times, lvl_steps,
+                             base_dims[0], base_dims[1], base_dims[2])
+    return RunData(levels_data=levels_data, comp_idxs=comp_idxs,
+                   components=names_ordered,
+                   min_values=minv.astype(np.float32),
+                   max_values=maxv.astype(np.float32),
                    amrexinfo=info, files=list(files), levels=list(levels))

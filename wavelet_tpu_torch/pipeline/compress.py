@@ -21,6 +21,10 @@ in host RAM up to the ``globalcache`` budget), one threshold keeps
 re-reading the timesteps pass 1 did not keep; pass 2 fetches dense
 coefficients, as in the JAX package.  The JAX package's other modes
 (multi-device, multi-process) are not ported.
+
+:func:`compress_collected` runs the same device codec and host pack over a
+run already in memory (``common.collect_run``); the estimate mode
+compresses into its scratch directory with it.
 """
 
 from __future__ import annotations
@@ -42,7 +46,19 @@ from wavelet_tpu_torch.runtime import engine
 
 log = logging.getLogger("wavelet_tpu_torch")
 
-__all__ = ["compress_run", "write_sidecars_meta"]
+__all__ = ["compress_run", "compress_collected", "write_sidecars",
+           "write_sidecars_meta"]
+
+
+def _iter_workitems(run: common.RunData):
+    """Flatten the (t, lev, comp, box) space of an in-memory run into codec
+    work items."""
+    for t, per_lev in enumerate(run.levels_data):
+        for li, lv in enumerate(per_lev):
+            for b, arr in enumerate(lv.boxes):
+                for c, comp_idx in enumerate(run.comp_idxs):
+                    yield (batching.WorkItem(t=t, level=li, comp_idx=comp_idx,
+                                             box=b), arr[c])
 
 
 def write_sidecars_meta(meta: common.RunMeta, min_level, max_level,
@@ -74,6 +90,17 @@ def write_sidecars_meta(meta: common.RunMeta, min_level, max_level,
     archive.write_amrexinfo(meta.amrexinfo, out_dir)
     # meta LAST so its sidecar_crc32 block covers all five .raw files
     archive.write_meta(out_dir)
+
+
+def write_sidecars(run: common.RunData, min_level, max_level, out_dir: str):
+    """Sidecars from an in-memory RunData (compress_collected callers)."""
+    meta = common.RunMeta(
+        locations=[[lv.locations for lv in per] for per in run.levels_data],
+        dimensions=[[lv.dimensions for lv in per] for per in run.levels_data],
+        counts=[[len(lv.boxes) for lv in per] for per in run.levels_data],
+        comp_idxs=run.comp_idxs, components=list(run.components),
+        amrexinfo=run.amrexinfo, files=run.files, levels=run.levels)
+    write_sidecars_meta(meta, min_level, max_level, out_dir)
 
 
 def _exists(out_dir: str, item, have=None) -> bool:
@@ -122,6 +149,32 @@ def _pack_overlapped(batches, device_step, out_dir: str,
             t1 = time.perf_counter()
             stats["output_bytes"] += pending.result()
             stats["pack_wait_seconds"] += time.perf_counter() - t1
+
+
+def _box_step(eng, packer, keep: float, transfer: str, stats: dict):
+    """The box-threshold device step for :func:`_pack_overlapped`: dense,
+    or sparse where ``eng.transfer_mode`` says so (only the kept (index,
+    value) pairs then cross the device->host link).  Adds the link bytes
+    to ``stats``."""
+    def step(batch):
+        if eng.transfer_mode(batch.shape, transfer) == "sparse":
+            sparse, t32 = eng.compress_shapebatch_sparse(batch, keep)
+            stats["device_to_host_bytes"] += sparse.transfer_bytes()
+            return (functools.partial(packer.pack_sparse, sparse=sparse,
+                                      t32=t32), len(batch.items))
+        coeffs, t32 = eng.compress_shapebatch(batch, keep)
+        stats["device_to_host_bytes"] += coeffs.data.nbytes
+        return (functools.partial(packer.pack, coeff_batch=coeffs, t32=t32),
+                len(batch.items))
+    return step
+
+
+def _new_stats() -> dict:
+    stats = dict.fromkeys(("files", "input_bytes", "output_bytes",
+                           "skipped", "device_to_host_bytes"), 0)
+    stats.update(dict.fromkeys(("read_seconds", "device_seconds",
+                                "pack_wait_seconds"), 0.0))
+    return stats
 
 
 def _iter_timestep_items(meta: common.RunMeta, t: int, lv_boxes):
@@ -238,10 +291,7 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
     have = (_have_index(cfg.compressed_dir, cfg.archive)
             if cfg.resume else None)
 
-    stats = dict.fromkeys(("files", "input_bytes", "output_bytes",
-                           "skipped", "device_to_host_bytes"), 0)
-    stats.update(dict.fromkeys(("read_seconds", "device_seconds",
-                                "pack_wait_seconds"), 0.0))
+    stats = _new_stats()
 
     def timestep_batches(t, resume_filter: bool):
         """Read timestep t and plan its batches (data freed with them);
@@ -260,19 +310,7 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
         stats["read_seconds"] += time.perf_counter() - t0
         return batches
 
-    def box_step(batch):
-        if eng.transfer_mode(batch.shape, cfg.transfer) == "sparse":
-            # sparsification on the device: only the kept (index, value)
-            # pairs cross the device->host link
-            sparse, t32 = eng.compress_shapebatch_sparse(batch, cfg.keep)
-            stats["device_to_host_bytes"] += sparse.transfer_bytes()
-            return (functools.partial(packer.pack_sparse, sparse=sparse,
-                                      t32=t32), len(batch.items))
-        coeffs, t32 = eng.compress_shapebatch(batch, cfg.keep)
-        stats["device_to_host_bytes"] += coeffs.data.nbytes
-        return (functools.partial(packer.pack, coeff_batch=coeffs, t32=t32),
-                len(batch.items))
-
+    box_step = _box_step(eng, packer, cfg.keep, cfg.transfer, stats)
     if cfg.threshold_mode == "global":
         bundle_bytes = _compress_global(cfg, meta, eng, packer, have,
                                         timestep_batches, stats)
@@ -296,6 +334,73 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
     bundle_bytes += packer.close_bundles()
     if packer.archive_format == "bundle":
         stats["output_bytes"] = bundle_bytes
+    return stats
+
+
+def compress_collected(run: common.RunData, keep: float, out_dir: str,
+                       packer=None, threshold_mode: str = "box",
+                       keep_fraction: float | None = None,
+                       resume: bool = False, scales: int = 1,
+                       payload: str = "f32", transfer: str = "dense",
+                       archive_format: str = "files",
+                       device: str = "cuda") -> dict:
+    """Device codec + host pack for already-collected data; writes payloads
+    only (no sidecars).  Returns stats.  ``threshold_mode`` is ``"box"``
+    (the reference's per-(box, component) rule) or ``"global"`` (one
+    magnitude threshold keeping ``keep_fraction`` of all coefficients,
+    from the summed histogram)."""
+    eng = engine.CodecEngine(device=device, scales=scales)
+    packer = packer or engine.HostPacker(payload=payload,
+                                         archive_format=archive_format)
+    items = list(_iter_workitems(run))
+    skipped = 0
+    have = _have_index(out_dir, packer.archive_format) if resume else None
+    if resume and threshold_mode != "global":
+        # global mode filters at the pack stage only: its histogram, and so
+        # its threshold, must cover every item
+        kept_items = [p for p in items if not _exists(out_dir, p[0], have)]
+        skipped = len(items) - len(kept_items)
+        if skipped:
+            log.info("Resume: skipping %d already-compressed items", skipped)
+        items = kept_items
+    batches = batching.plan_batches(items, pack_fn=eng.pack_factor,
+                                    pad_fn=eng.pad_multiple_for)
+    if threshold_mode == "global":
+        if keep_fraction is None:
+            raise ValueError("global threshold mode requires keep_fraction")
+        hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
+        coeff_batches = []
+        for batch in batches:
+            cb, h = eng.forward_hist_shapebatch(batch)
+            coeff_batches.append(cb)
+            hist += h
+        t = threshold.threshold_from_histogram(hist, keep_fraction)
+        log.info("Global magnitude threshold (keep_fraction=%s): %s",
+                 keep_fraction, t)
+        n_files = in_bytes = out_bytes = 0
+        for cb in coeff_batches:
+            t32 = np.full(len(cb.items), t, np.float32)
+            subset = None
+            if resume:
+                subset = [i for i, it in enumerate(cb.items)
+                          if not _exists(out_dir, it, have)]
+                skipped += len(cb.items) - len(subset)
+            out_bytes += packer.pack(out_dir, cb, t32, subset=subset)
+            n_files += len(subset) if subset is not None else len(cb.items)
+            in_bytes += cb.n_valid * int(np.prod(cb.shape)) * 4
+        bundle_bytes = packer.close_bundles()
+        if packer.archive_format == "bundle":
+            out_bytes = bundle_bytes
+        return {"files": n_files, "input_bytes": in_bytes,
+                "output_bytes": out_bytes, "global_threshold": float(t),
+                "skipped": skipped}
+    stats = _new_stats()
+    _pack_overlapped(batches, _box_step(eng, packer, keep, transfer, stats),
+                     out_dir, stats)
+    bundle_bytes = packer.close_bundles()
+    if packer.archive_format == "bundle":
+        stats["output_bytes"] = bundle_bytes
+    stats["skipped"] = skipped
     return stats
 
 

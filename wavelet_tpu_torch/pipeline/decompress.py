@@ -16,7 +16,10 @@ Partial retrieval (timestep window, component subset, level prefix) and
 compression), and so is sparse transfer: ``transfer=sparse`` (or ``auto``
 on a slow link) ships only the kept (position, value) pairs to the device
 and scatters them there, for box-mode and global-mode archives alike.
-Preview is not ported.
+Under ``WAVELET_TPU_LAYOUT=halves`` a bucket whose boxes pack
+(``CodecEngine.pack_factor``) is unpacked into a lane-packed batch and
+inverted by ``packed_inverse``; a sparse bucket still scatters logical
+rows and comes back one box per row.  Preview is not ported.
 """
 
 from __future__ import annotations

@@ -5,21 +5,38 @@ Counterpart of ``wavelet_tpu.runtime.engine`` for one device: box
 thresholds and the global-threshold histogram pass, on single-scale
 transforms or ``scales``-deep pyramids, with dense or sparse transfer.
 Coefficients use the ``halves`` layout (the reference's order, the pyramid
-in logical order), one box per batch row (``pack=1``): on the card one
-thread per 2x2x2 cell writes that layout with coalesced stores, so the
-TPU's interleaved layout and lane packing buy nothing here.  Branches
-outside the port raise ``NotImplementedError``; none falls back to another
-path.
+in logical order).  Branches outside the port raise
+``NotImplementedError``; none falls back to another path.
 
-Kernels per shape, with ``eff = eff_scales(shape)``: box mode runs
-``haar_cuda.fused_forward`` at eff = 1 and ``pyramid_cuda.pyramid_forward``
-deeper; the global pass runs ``pyramid_cuda.forward_hist`` at every eff;
-decompression runs ``haar_cuda.fused_inverse`` or
-``pyramid_cuda.pyramid_inverse``.  Sparse transfer (``transfer=sparse``,
-or ``auto`` on a slow link) compacts the thresholded coefficients on the
-card with ``compact_cuda.compact`` and ships only the kept (index, value)
-pairs; on decompress the pairs are scattered into zeroed rows on the card
-before the inverse kernel.
+Two kernel routes, the JAX package's A/B switch ``WAVELET_TPU_LAYOUT``
+(or ``CodecEngine(layout=)``):
+
+- ``auto`` / ``interleaved`` (the default): one box per batch row
+  (``pack=1``).  On the card one thread per 2x2x2 cell writes the halves
+  layout with coalesced stores, so the TPU's in-place interleaved layout
+  has no counterpart here.  With ``eff = eff_scales(shape)``, box mode runs
+  ``haar_cuda.fused_forward`` at eff = 1 and
+  ``pyramid_cuda.pyramid_forward`` deeper; the global pass runs
+  ``pyramid_cuda.forward_hist`` at every eff; decompression runs
+  ``haar_cuda.fused_inverse`` or ``pyramid_cuda.pyramid_inverse``.
+- ``halves``: the JAX package's halves route.  At ``scales=1`` a box of at
+  most 4 MiB whose even Z divides 128 is lane-packed P = 128/Z boxes per
+  row (``pack_factor``) and runs ``packed_cuda.packed_forward`` /
+  ``packed_forward_hist`` / ``packed_inverse``; every other shape keeps
+  the default route's kernels.  Archives are byte-identical either way.
+  Measured on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``,
+  PERF.md): on the same bytes, ``packed_forward`` at [80, 64, 64,
+  128] (P = 2) takes 0.132 ms against K1's 0.151 ms at [160, 64, 64, 64]
+  and ``packed_inverse`` 0.122 ms like K2; at P = 64 (8x4x2 boxes) the
+  packed kernels take 0.149 / 0.120 ms against K1/K2's 2.51 / 0.229 ms.
+  End to end the host's xz pack sets the wall on either route, so the
+  default stays ``pack=1`` until a benchmark cell shows a gain.
+
+Sparse transfer (``transfer=sparse``, or ``auto`` on a slow link) compacts
+the thresholded coefficients on the card with ``compact_cuda.compact``
+(item-major logical rows, unpacked first on the halves route) and ships
+only the kept (index, value) pairs; on decompress the pairs are scattered
+into zeroed rows on the card before the one-box-per-row inverse kernel.
 
 ``SparseCoeffs``, ``resolve_signed_absmax`` and ``HostPacker`` are jax-free
 copies of the JAX package's (the originals live in a module that imports
@@ -41,7 +58,8 @@ from wavelet_tpu_torch import native
 from wavelet_tpu_torch.core import rle, threshold
 from wavelet_tpu_torch.io import archive, bundle
 from wavelet_tpu_torch.runtime.batching import ShapeBatch
-from wavelet_tpu_torch.kernels import compact_cuda, haar_cuda, pyramid_cuda
+from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
+                                       packed_cuda, pyramid_cuda)
 
 log = logging.getLogger("wavelet_tpu_torch")
 
@@ -139,13 +157,25 @@ class CodecEngine:
 
     On a CUDA device the transforms and the compaction are the
     hand-written kernels of ``kernels/haar_cuda.py``,
-    ``kernels/pyramid_cuda.py`` and ``kernels/compact_cuda.py``; on the
-    CPU, their plain PyTorch versions — bitwise the same results."""
+    ``kernels/pyramid_cuda.py``, ``kernels/packed_cuda.py`` and
+    ``kernels/compact_cuda.py``; on the CPU, their plain PyTorch versions
+    — bitwise the same results.  ``layout=None`` reads
+    ``WAVELET_TPU_LAYOUT`` (``auto`` | ``interleaved`` | ``halves``)."""
 
-    def __init__(self, device="cuda", scales: int = 1):
+    # one box must fit the JAX halves kernels' VMEM block: the bound of the
+    # halves route's packed shapes, kept so both packages pack alike
+    _PALLAS_MAX_BLOCK_BYTES = 4 << 20
+
+    def __init__(self, device="cuda", scales: int = 1,
+                 layout: str | None = None):
         self.device = resolve_device(device)
         self.scales = int(scales)
         self._sparse_cap_hint: dict = {}   # shape -> adaptive cap fraction
+        if layout is None:
+            layout = os.environ.get("WAVELET_TPU_LAYOUT", "auto")
+        if layout not in ("auto", "interleaved", "halves"):
+            raise ValueError(f"unknown kernel layout {layout!r}")
+        self.layout = layout
 
     def eff_scales(self, dims) -> int:
         """Deepest pyramid this box shape supports, capped at the requested
@@ -160,7 +190,16 @@ class CodecEngine:
     def coeff_layout(self, dims) -> str:
         return "halves"
 
+    def _halves_ok(self, dims) -> bool:
+        """Whether boxes of this shape take the halves route's packed
+        kernels (the JAX package's ``_halves_ok`` with ``use_pallas``)."""
+        return (self.layout == "halves" and self.scales == 1
+                and int(np.prod(dims)) * 4 <= self._PALLAS_MAX_BLOCK_BYTES)
+
     def pack_factor(self, dims) -> int:
+        """Boxes per batch row (``batching.plan_batches``' ``pack_fn``)."""
+        if self._halves_ok(dims):
+            return packed_cuda.lane_pack_factor(dims)
         return 1
 
     def pad_multiple_for(self, dims) -> int:
@@ -318,23 +357,26 @@ class CodecEngine:
     def _host(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
 
-    def _forward(self, data: np.ndarray):
-        """-> (coeffs [N, X, Y, Z] on the host, signed absmax [N])."""
-        eff = self.eff_scales(data.shape[1:])
+    def _forward_dev(self, x: torch.Tensor, dims, pack: int = 1):
+        """Device forward of a batch array: -> (coeffs, max, min) on the
+        device, coefficients in the batch's geometry, extrema per item."""
+        if pack > 1:
+            return packed_cuda.packed_forward(x, pack)
+        eff = self.eff_scales(dims)
         if eff > 1:
-            c, maxv, minv = pyramid_cuda.pyramid_forward(self._put(data), eff)
-        else:
-            c, maxv, minv = haar_cuda.fused_forward(self._put(data))
-        coeffs = self._host(c)
-        flat = coeffs.reshape(coeffs.shape[0], -1)
-        signed = resolve_signed_absmax(self._host(maxv), self._host(minv),
-                                       row_getter=flat.__getitem__)
-        return coeffs, signed
+            return pyramid_cuda.pyramid_forward(x, eff)
+        return haar_cuda.fused_forward(x)
 
     def forward_signed_batch(self, data: np.ndarray):
-        """-> (coeffs f32 [N, XYZ], signed absmax f32 [N])."""
-        coeffs, signed = self._forward(data)
-        return coeffs.reshape(coeffs.shape[0], -1), signed
+        """-> (coeffs f32 [N, XYZ], signed absmax f32 [N]) of an unpacked
+        ``[N, X, Y, Z]`` batch: the transform and the keep-independent half
+        of the threshold rule (a keep sweep derives each keep's thresholds
+        from ``signed``)."""
+        c, maxv, minv = self._forward_dev(self._put(data), data.shape[1:])
+        flat = self._host(c).reshape(c.shape[0], -1)
+        signed = resolve_signed_absmax(self._host(maxv), self._host(minv),
+                                       row_getter=flat.__getitem__)
+        return flat, signed
 
     def compress_batch_raw(self, data: np.ndarray, keep: float):
         """-> (coeffs f32 [N, XYZ], t32 f32 [N]): transform + exact per-item
@@ -346,9 +388,15 @@ class CodecEngine:
         """-> (coefficient ShapeBatch of the same geometry, t32 f32 per
         item incl. padding slots)."""
         self._check_batch(batch)
-        coeffs, signed = self._forward(batch.data)
-        return (dataclasses.replace(batch, data=coeffs),
-                threshold.exact_threshold32(signed, keep))
+        c, maxv, minv = self._forward_dev(self._put(batch.data), batch.shape,
+                                          batch.pack)
+        cb = dataclasses.replace(batch, data=self._host(c))
+        # a tie resolves against item i's logical coefficients, wherever
+        # the batch geometry puts them
+        signed = resolve_signed_absmax(
+            self._host(maxv), self._host(minv),
+            row_getter=lambda i: cb.item_view(i).reshape(-1))
+        return cb, threshold.exact_threshold32(signed, keep)
 
     def compress_shapebatch_sparse(self, batch: ShapeBatch, keep: float,
                                    cap_fraction: float | None = None):
@@ -373,14 +421,13 @@ class CodecEngine:
         if adaptive:
             cap_fraction = self._sparse_cap_hint.get(batch.shape, 0.25)
         dims = batch.shape
-        eff = self.eff_scales(dims)
         m = int(np.prod(dims))
-        x = self._put(batch.data)
-        if eff > 1:
-            c, maxv, minv = pyramid_cuda.pyramid_forward(x, eff)
-        else:
-            c, maxv, minv = haar_cuda.fused_forward(x)
-        flat = c.reshape(c.shape[0], -1)
+        c, maxv, minv = self._forward_dev(self._put(batch.data), dims,
+                                          batch.pack)
+        # item-major logical rows [N, X*Y*Z], as the JAX package's
+        # _unpack_packed_coeffs makes them from a packed batch
+        flat = (packed_cuda.unpack(c, batch.pack) if batch.pack > 1
+                else c).reshape(-1, m)
         signed = resolve_signed_absmax(
             self._host(maxv), self._host(minv),
             row_getter=lambda i: self._host(flat[i]))
@@ -428,11 +475,14 @@ class CodecEngine:
                             idxs=self._host(idxs), vals=self._host(vals),
                             cap=cap, _flat_dev=flat), t32
 
-    def _forward_hist(self, data: np.ndarray):
-        """-> (coeffs [N, X, Y, Z] on the device, int64 histogram of the
-        whole batch on the host)."""
-        eff = max(1, self.eff_scales(data.shape[1:]))
-        c, hist = pyramid_cuda.forward_hist(self._put(data), eff)
+    def _forward_hist(self, data: np.ndarray, pack: int = 1):
+        """-> (coeffs on the device, in the batch's geometry, int64
+        histogram of the whole batch on the host)."""
+        if pack > 1:
+            c, hist = packed_cuda.packed_forward_hist(self._put(data), pack)
+        else:
+            eff = max(1, self.eff_scales(data.shape[1:]))
+            c, hist = pyramid_cuda.forward_hist(self._put(data), eff)
         return c, self._host(hist)
 
     def forward_hist_shapebatch(self, batch: ShapeBatch,
@@ -441,11 +491,13 @@ class CodecEngine:
         histogram of the real items).  ``fetch_coeffs=False`` returns
         ``(None, hist)`` and moves no coefficient to the host."""
         self._check_batch(batch)
-        c, hist = self._forward_hist(batch.data)
+        c, hist = self._forward_hist(batch.data, batch.pack)
         # padding slots are zero boxes: take their coefficients out of the
-        # zero bin so the quantile counts real coefficients only
-        n_pad = batch.data.shape[0] - batch.n_valid
-        hist[0] -= n_pad * int(np.prod(batch.shape))
+        # zero bin so the quantile counts real coefficients only (items,
+        # not rows: a packed row holds P items)
+        m = int(np.prod(batch.shape))
+        n_pad = batch.data.size // m - batch.n_valid
+        hist[0] -= n_pad * m
         if not fetch_coeffs:
             return None, hist
         return dataclasses.replace(batch, data=self._host(c)), hist
@@ -458,7 +510,10 @@ class CodecEngine:
         hist[0] -= n_pad_rows * flat.shape[1]
         return flat, hist
 
-    def _inverse(self, blocks: np.ndarray) -> np.ndarray:
+    def _inverse(self, blocks: np.ndarray, pack: int = 1) -> np.ndarray:
+        if pack > 1:
+            return self._host(packed_cuda.packed_inverse(self._put(blocks),
+                                                         pack))
         eff = self.eff_scales(blocks.shape[1:])
         if eff > 1:
             out = pyramid_cuda.pyramid_inverse(self._put(blocks), eff)
@@ -469,8 +524,23 @@ class CodecEngine:
     def decompress_shapebatch(self, coeff_batch: ShapeBatch) -> ShapeBatch:
         """Coefficients -> reconstructed boxes, same geometry."""
         self._check_batch(coeff_batch)
-        return dataclasses.replace(coeff_batch,
-                                   data=self._inverse(coeff_batch.data))
+        return dataclasses.replace(
+            coeff_batch, data=self._inverse(coeff_batch.data,
+                                            coeff_batch.pack))
+
+    def rmse_batch(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """Per-item RMSE [N] of ``a`` against ``b`` (float32 on the device):
+        the JAX package's ``_rmse_step``, a chunked two-stage float32 sum
+        (rows of 4096-element chunks, then the chunk sums)."""
+        d = (self._put(a) - self._put(b)).reshape(a.shape[0], -1)
+        m = d.shape[1]
+        sq = d * d
+        chunks = max(1, m // 4096)
+        pad = -m % chunks
+        if pad:
+            sq = torch.nn.functional.pad(sq, (0, pad))
+        partial = sq.reshape(sq.shape[0], chunks, -1).sum(dim=2)
+        return self._host(torch.sqrt(partial.sum(dim=1) / m))
 
     @staticmethod
     def scatter_rows(idx: torch.Tensor, vals: torch.Tensor,
@@ -526,13 +596,17 @@ class CodecEngine:
             (-1,) + dims))
 
     def _check_batch(self, batch: ShapeBatch) -> None:
-        # spatial batches carry scales=1, coefficient batches eff_scales
-        if (batch.pack != 1 or batch.layout != "halves"
-                or batch.scales not in (1, self.eff_scales(batch.shape))):
+        # spatial batches carry scales=1, coefficient batches eff_scales;
+        # lane-packed batches only on the halves route, at scales=1
+        if (batch.layout != "halves"
+                or batch.scales not in (1, self.eff_scales(batch.shape))
+                or (batch.pack != 1 and not (
+                    self._halves_ok(batch.shape)
+                    and batch.shape[-1] % 2 == 0))):
             raise NotImplementedError(
                 f"batch geometry pack={batch.pack} layout={batch.layout!r} "
-                f"scales={batch.scales} is not ported (pack=1, halves, "
-                "scales=1 or eff_scales(shape) only)")
+                f"scales={batch.scales} is not ported (halves; pack=1, or "
+                "lane-packed on the halves route at scales=1)")
 
 
 def _atomic_write(path: str, blob: bytes) -> None:
@@ -624,11 +698,14 @@ class HostPacker:
     @staticmethod
     def _geometry(batch: ShapeBatch):
         """(rows, row_len, row_stride) of one item inside batch.data."""
-        if batch.pack != 1 or batch.layout != "halves":
+        if batch.layout != "halves":
             raise NotImplementedError(
-                "the port's packer walks pack=1 halves batches only")
-        n = int(np.prod(batch.shape))
-        return 1, n, n
+                "the port's packer walks halves batches only")
+        x, y, z = batch.shape
+        if batch.pack == 1:
+            n = x * y * z
+            return 1, n, n
+        return x * y, z, batch.pack * z
 
     def pack(self, out_dir: str, coeff_batch: ShapeBatch,
              t32: np.ndarray, subset=None) -> int:
