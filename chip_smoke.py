@@ -56,7 +56,26 @@ Phases (any failure exits non-zero before the last line):
    ``device=cuda`` and ``device=cpu`` at both layouts, must report the
    same RMSE, adjusted loss and size; ``devicemetrics=1`` must agree with
    the host metrics to ``rtol=1e-5``.  Then ``-check`` and ``-info`` on
-   (a)'s archive.
+   (a)'s archive.  (h) ``-d preview=1`` and ``preview=2`` (level 0) of
+   (a)'s and (b)'s archives, equal on cuda and cpu and to the block mean
+   of the full output (rtol 1e-5); a depth equal to the stored scales
+   launches nothing and ships no bytes, one scale left launches K2, a
+   deeper preview K2 and then the low-pass.  (i) The first timestep of (a)
+   and of (c) through the API over a two-entry mesh (two cards where
+   there are, else cuda:0 twice): (a)'s payloads and plotfiles, (c)'s
+   archive without a mesh, every kernel launched once per row chunk.  (j)
+   One 256^3 box (64 MiB f32, a 128 MiB f64 FAB) with
+   ``giantbox=33554432`` over that mesh at ``scales=1`` and ``2``, -c
+   then -d: the archive and plotfiles of the unsplit run, the slab kernels
+   launched twice per box; then ``preview=2`` of the two-scale archive,
+   the corner alone.  (k) ``python -m wavelet_tpu_torch.cli``'s main in
+   two processes on the card (``coordinator=127.0.0.1:PORT processes=2
+   processid=I``, under one deadline): ``-c`` of (a)'s first timestep
+   equal to one process's archive and (a)'s payloads, ``-c`` of (c)'s
+   first timestep with ``archive=bundle`` equal in its members to one
+   process's, one bundle per rank, and ``-d`` of (a)'s archive equal to
+   (a)'s plotfiles.  The wall of each of (h)-(k) is printed on its own
+   line.
 6. Timing: kernel and plain-version times with CUDA events at the main
    path's 64^3 batch (the compaction on its coefficient rows; the packed
    kernels on the same boxes packed two to a row, and at P = 64 beside
@@ -149,6 +168,24 @@ KERNELS = {
                             "the packed global pass with the histogram)",
                             "wavelet_tpu_torch/csrc/packed.cu"),
 }
+# (h): (archive, preview depth, extra -d keys, the only kernels the
+# preview may launch).  preview=2 regenerates level 0 alone (maxlevel=0):
+# level 1's 8x4x2 box does not divide by 4.  A depth equal to the stored
+# scales slices the corner on the host and sends nothing over the link.
+PREVIEWS = [("a", 1, [], ()), ("a", 2, ["maxlevel=0"], ("haar_inverse",)),
+            ("b", 1, [], ("haar_inverse",)), ("b", 2, ["maxlevel=0"], ())]
+# (j): one 256^3 box of one component (64 MiB of f32, a 128 MiB f64 FAB),
+# split along X over the two-entry mesh once a box reaches GIANT_BYTES.
+# A 512^3 box (giantbox=268435456) took this phase 26.9 s on one H100
+# host and 67.5 s on another, over a 60 s budget: its 1 GiB f64 FAB is
+# written five times and read four, and that host I/O varies by host.
+GIANT_N = 256
+GIANT_BYTES = 33554432
+GIANT_STEP = "plt00300"
+FORWARD = {1: "haar_forward", 2: "pyramid_forward"}
+INVERSE = {1: "haar_inverse", 2: "pyramid_inverse"}
+DEADLINE_S = 300           # (k): one deadline for both processes of a run
+DEV = "cuda"               # the device of phases (h)-(k)
 
 
 def _card() -> str:
@@ -951,6 +988,444 @@ def run_check_info(name: str) -> dict:
             "info_total_bytes": inf["total_bytes"]}
 
 
+def _expect_launches(name: str, launches: dict, want: dict) -> None:
+    """Exact launch counts: ``want``'s kernels as given, every other 0."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        raise AssertionError(f"({name}) launches {launches}, expected "
+                             f"{full}")
+
+
+def _lowpass(a, depth: int):
+    """``depth`` rounds of 2x2x2 block means over the last three axes, in
+    float32 with one rounding per combine (Z, Y, X per round)."""
+    import numpy as np
+
+    a = np.asarray(a, np.float32)
+    half = np.float32(0.5)
+    for _ in range(depth):
+        a = (a[..., 0::2] + a[..., 1::2]) * half
+        a = (a[..., 0::2, :] + a[..., 1::2, :]) * half
+        a = (a[..., 0::2, :, :] + a[..., 1::2, :, :]) * half
+    return a
+
+
+def _preview_rel_err(full_dir: str, prev_dir: str, depth: int,
+                     n_levels: int, n_comps: int = len(COMPONENTS)) -> float:
+    """Largest |preview - block mean of the full output| / max(|mean|,
+    0.1) over every box; raises past rtol 1e-5, atol 1e-6 (as the JAX
+    package's tests/test_preview.py holds it)."""
+    import numpy as np
+
+    from wavelet_tpu_torch.io import plotfile
+
+    comps = range(n_comps)
+    worst = 0.0
+    for ts in sorted(os.listdir(prev_dir)):
+        for lev in range(n_levels):
+            full = plotfile.read_level(os.path.join(full_dir, ts), lev, comps)
+            prev = plotfile.read_level(os.path.join(prev_dir, ts), lev, comps)
+            assert len(full.boxes) == len(prev.boxes)
+            for fb, pb in zip(full.boxes, prev.boxes):
+                want = _lowpass(fb, depth)
+                assert pb.shape == want.shape, (pb.shape, want.shape)
+                np.testing.assert_allclose(pb, want, rtol=1e-5, atol=1e-6)
+                worst = max(worst, float((np.abs(pb - want) / np.maximum(
+                    np.abs(want), 0.1)).max()))
+    return worst
+
+
+def run_previews(done: dict) -> dict:
+    """(h): ``-d preview=P`` of (a)'s (one scale) and (b)'s (two scales)
+    archives with device=cuda and device=cpu: the plotfiles must be equal,
+    each the ``P``-fold block mean of the full ``-d`` output, and only the
+    kernels of ``PREVIEWS`` may launch: none (and no link bytes) where P
+    equals the stored scales."""
+    out = {}
+    for name, depth, keys, path in PREVIEWS:
+        run = f"{name}_preview{depth}"
+        comp = os.path.join(WORK, f"{name}_arch_cuda") + os.sep
+        res, trees = {}, []
+        for dev in (DEV, "cpu"):
+            dst = os.path.join(WORK, f"{run}_{dev}") + os.sep
+            _reset_launches()
+            secs, ds = _run_cli([f"compresseddir={comp}", f"out={dst}",
+                                 f"preview={depth}", *keys, f"device={dev}",
+                                 "-d"])
+            trees.append(_tree(dst))
+            if dev == DEV:
+                res = {"cuda_decompress_s": secs, "launches": _launches(),
+                       "host_to_device_bytes": ds["host_to_device_bytes"],
+                       "device_seconds": ds["device_seconds"],
+                       "full_host_to_device_bytes":
+                           done[name]["host_to_device_bytes"]}
+            else:
+                res["cpu_decompress_s"] = secs
+        if trees[0] != trees[1] or not trees[0]:
+            raise AssertionError(f"({run}) plotfiles differ between "
+                                 "device=cuda and cpu")
+        _check_counts(run, res["launches"], dict.fromkeys(path, 1),
+                      [k for k in KERNELS if k not in path])
+        if (res["host_to_device_bytes"] == 0) != (not path):
+            raise AssertionError(f"({run}) shipped "
+                                 f"{res['host_to_device_bytes']} bytes")
+        res["max_rel_err_to_blockmean"] = _preview_rel_err(
+            os.path.join(WORK, f"{name}_out_cuda"),
+            os.path.join(WORK, f"{run}_{DEV}"), depth,
+            1 if "maxlevel=0" in keys else 2)
+        out[run] = res
+    return out
+
+
+def _two_entry_mesh():
+    """Two mesh entries: two cards where there are, else cuda:0 twice."""
+    import torch
+
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
+
+    if DEV == "cpu":
+        return mesh_lib.data_mesh(["cpu", "cpu"])
+    n = 2 if torch.cuda.device_count() >= 2 else 1
+    return mesh_lib.data_mesh([f"cuda:{i % n}" for i in range(2)])
+
+
+def _api_run(data_dir: str, name: str, steps, mesh, c_opts: dict,
+             d_opts=None, components=COMPONENTS, max_level: int = 1) -> dict:
+    """``wavelet_tpu_torch.compress`` then ``decompress`` on the card over
+    ``mesh``: -> wall seconds, pipeline stats, launch counts and the
+    archive and plotfile trees."""
+    import wavelet_tpu_torch
+
+    comp = os.path.join(WORK, f"{name}_arch") + os.sep
+    out = os.path.join(WORK, f"{name}_out") + os.sep
+    _reset_launches()
+    t0 = time.perf_counter()
+    cs = wavelet_tpu_torch.compress(
+        data_dir, comp, min_time=steps[0], max_time=steps[-1],
+        components=list(components), min_level=0, max_level=max_level,
+        device=DEV, mesh=mesh, **c_opts)
+    t1 = time.perf_counter()
+    ds = wavelet_tpu_torch.decompress(comp, out, device=DEV, mesh=mesh,
+                                      **(d_opts or {}))
+    return {"compress_s": t1 - t0, "decompress_s": time.perf_counter() - t1,
+            "device_to_host_bytes": cs["device_to_host_bytes"],
+            "host_to_device_bytes": ds["host_to_device_bytes"],
+            "launches": _launches(), "arch": _tree(comp), "out": _tree(out)}
+
+
+def _payloads_of_first_step(name: str) -> dict:
+    """(``name``)'s device=cuda payload files of timestep 0."""
+    return {k: v for k, v in _tree(os.path.join(WORK, f"{name}_arch_cuda"))
+            .items() if k.startswith("compressed-wavelet-0-")}
+
+
+def _first_step_plotfiles(name: str) -> dict:
+    return {k: v for k, v in _tree(os.path.join(WORK, f"{name}_out_cuda"))
+            .items() if k.startswith(TIMESTEPS[0] + os.sep)}
+
+
+def _summary(r: dict) -> dict:
+    return {k: v for k, v in r.items() if k not in ("arch", "out")}
+
+
+def run_mesh(data_dir: str) -> dict:
+    """(i): the first timestep of (a) and of (c) through the API over a
+    two-entry mesh: every batch splits into two row chunks, each run by
+    its kernel on its entry.  (a)'s payloads and plotfiles must be (a)'s;
+    (c)'s archive and plotfiles those of the same run without a mesh (a
+    one-timestep histogram gives its own threshold); every kernel of the
+    path launches once per chunk, twice per unsplit launch."""
+    mesh = _two_entry_mesh()
+    steps = TIMESTEPS[:1]
+    n_buckets = _n_buckets(data_dir, steps)
+    out = {"mesh": [str(d) for d in mesh.devices]}
+    a = _api_run(data_dir, "i_a", steps, mesh, {"keep": KEEP})
+    _expect_launches("i, a", a["launches"],
+                     {"haar_forward": 2 * n_buckets,
+                      "haar_inverse": 2 * n_buckets})
+    payloads = _payloads_of_first_step("a")
+    if {k: v for k, v in a["arch"].items() if k.endswith(".xz")} \
+            != payloads or not payloads:
+        raise AssertionError("(i, a) payloads differ from (a)'s")
+    if a["out"] != _first_step_plotfiles("a"):
+        raise AssertionError("(i, a) plotfiles differ from (a)'s")
+    out["a"] = {**_summary(a), "payloads_equal_to_a": len(payloads)}
+    c_opts = {"threshold_mode": "global", "keep_fraction": 0.02, "scales": 2}
+    one = _api_run(data_dir, "i_c_one", steps, None, c_opts)
+    c = _api_run(data_dir, "i_c", steps, mesh, c_opts)
+    _expect_launches("i, c", c["launches"],
+                     {k: 2 * n for k, n in one["launches"].items()})
+    if c["arch"] != one["arch"] or c["out"] != one["out"]:
+        raise AssertionError("(i, c) archive or plotfiles differ from the "
+                             "run without a mesh")
+    out["c"], out["c_no_mesh"] = _summary(c), _summary(one)
+    return out
+
+
+def make_giant_dataset(data_dir: str, n: int) -> int:
+    """One timestep holding one ``n``^3 box of one component (f64 FAB);
+    returns its f32 bytes."""
+    import numpy as np
+
+    from wavelet_tpu_torch.io import plotfile
+
+    rng = np.random.default_rng(3)
+    box = _field((n, n, n), (0, 0, 0), 1.0 / n, 0, 0, rng)
+    plotfile.write_plotfile(
+        os.path.join(data_dir, GIANT_STEP), [[box[None]]], [[(0, 0, 0)]],
+        [[(n, n, n)]], ["density"], 0.003, [0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+        (2, 2, 2), (n, n, n), [300])
+    return box.nbytes
+
+
+class _LogLines:
+    """Collects the port's log messages (INFO and up) inside a block."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines = []
+        lines = self.lines
+
+        class _Handler(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        self.log = logging.getLogger("wavelet_tpu_torch")
+        self.handler, self.level = _Handler(), self.log.level
+        self.log.addHandler(self.handler)
+        self.log.setLevel(logging.INFO)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+        self.log.setLevel(self.level)
+
+
+def run_giant() -> dict:
+    """(j): one GIANT_N^3 box over the two-entry mesh with
+    ``giantbox=GIANT_BYTES`` at scales 1 and 2 (``codec=raw``: one item is
+    one single-threaded xz stream): the archive and plotfiles must be the
+    same run's without a mesh, the giant path must run (its log line), and
+    the slab kernels launch twice, once per X-slab.  Then ``preview=2`` of
+    the two-scale archive takes the stored corner alone: no launch, no
+    link bytes."""
+    from wavelet_tpu_torch.runtime import engine
+
+    data_dir = os.path.join(WORK, "giant_data")
+    t0 = time.perf_counter()
+    nbytes = make_giant_dataset(data_dir, GIANT_N)
+    out = {"box": [GIANT_N] * 3, "input_bytes": nbytes,
+           "giant_box_bytes": GIANT_BYTES,
+           "dataset_s": time.perf_counter() - t0}
+    mesh = _two_entry_mesh()
+    dims = (GIANT_N,) * 3
+    if not engine.CodecEngine(device=DEV, mesh=mesh,
+                              giant_box_bytes=GIANT_BYTES).giant_ok(dims):
+        raise AssertionError(f"(j) {dims} is not giant at {GIANT_BYTES}")
+    giant = {"giant_box_bytes": GIANT_BYTES}
+    for scales in (1, 2):
+        runs = {}
+        for which, m, opts in (("one", None, {}), ("mesh", mesh, giant)):
+            with _LogLines() as lines:
+                r = _api_run(data_dir, f"j{scales}_{which}", [GIANT_STEP], m,
+                             {"keep": KEEP, "scales": scales, "codec": "raw",
+                              **opts}, opts, ["density"], 0)
+            r["giant_path"] = sum("Giant box path" in s for s in lines)
+            n = 2 if m is not None else 1
+            _expect_launches(f"j, scales={scales}, {which}", r["launches"],
+                             {FORWARD[scales]: n, INVERSE[scales]: n})
+            if (r["giant_path"] > 0) != (m is not None):
+                raise AssertionError(f"(j, scales={scales}, {which}) giant "
+                                     f"path logged {r['giant_path']} times")
+            runs[which] = r
+        if runs["mesh"]["arch"] != runs["one"]["arch"] or \
+                runs["mesh"]["out"] != runs["one"]["out"]:
+            raise AssertionError(f"(j, scales={scales}) archive or "
+                                 "plotfiles differ from the unsplit run")
+        out[f"scales{scales}"] = {k: _summary(v) for k, v in runs.items()}
+    import wavelet_tpu_torch
+
+    comp = os.path.join(WORK, "j2_mesh_arch")
+    trees = {}
+    for which, m, opts in (("one", None, {}), ("mesh", mesh, giant)):
+        dst = os.path.join(WORK, f"j_preview_{which}")
+        _reset_launches()
+        t0 = time.perf_counter()
+        ds = wavelet_tpu_torch.decompress(comp, dst, device=DEV, mesh=m,
+                                          preview=2, **opts)
+        out[f"preview2_{which}"] = {
+            "decompress_s": time.perf_counter() - t0,
+            "host_to_device_bytes": ds["host_to_device_bytes"],
+            "launches": _launches()}
+        _expect_launches(f"j, preview=2, {which}", _launches(), {})
+        if ds["host_to_device_bytes"]:
+            raise AssertionError("(j) preview=2 shipped "
+                                 f"{ds['host_to_device_bytes']} bytes")
+        trees[which] = _tree(dst)
+    if trees["mesh"] != trees["one"] or not trees["mesh"]:
+        raise AssertionError("(j) preview=2 plotfiles differ")
+    out["preview2_rel_err_to_blockmean"] = _preview_rel_err(
+        os.path.join(WORK, "j2_mesh_out"),
+        os.path.join(WORK, "j_preview_mesh"), 2, 1, 1)
+    return out
+
+
+# a child of (k): the CLI's own main, then its launch counts on one line
+CHILD = """import json, sys
+from wavelet_tpu_torch import cli
+from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
+                                       packed_cuda, pyramid_cuda)
+rc = cli.main(sys.argv[1:])
+counts = {}
+for mod in (haar_cuda, pyramid_cuda, compact_cuda, packed_cuda):
+    counts.update(mod.launches)
+print("launches " + json.dumps(counts))
+sys.exit(rc)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli_procs(name: str, args, n_procs: int):
+    """``n_procs`` CLI processes (a gloo process group on localhost when
+    more than one) under one deadline: a process that fails or outlives
+    it ends the run and every process still running is killed.  -> (wall
+    seconds, each process's launch counts)."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    logs = [os.path.join(WORK, f"{name}_p{i}.log") for i in range(n_procs)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for i, path in enumerate(logs):
+            group = ([f"coordinator=127.0.0.1:{port}",
+                      f"processes={n_procs}", f"processid={i}"]
+                     if n_procs > 1 else [])
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", CHILD, *args, *group,
+                     f"device={DEV}"], cwd=REPO, env=env, stdout=f,
+                    stderr=subprocess.STDOUT))
+        end = time.monotonic() + DEADLINE_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > end:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    launches = []
+    for i, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"({name}) process {i} of {n_procs} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+        launches.append(next(json.loads(line.split(" ", 1)[1])
+                             for line in text.splitlines()
+                             if line.startswith("launches ")))
+    return wall, launches
+
+
+def _launch_dicts(res):
+    """Every launch-count dict in a phase's result: the values of its
+    ``launches`` keys, at any depth, a list of dicts for (k)'s
+    processes."""
+    if isinstance(res, dict):
+        for k, v in res.items():
+            if k == "launches":
+                yield from (v if isinstance(v, list) else [v])
+            else:
+                yield from _launch_dicts(v)
+
+
+def _each_launched(name: str, launches, kernel: str) -> None:
+    for i, counts in enumerate(launches):
+        if counts[kernel] < 1:
+            raise AssertionError(f"({name}) process {i} launched no "
+                                 f"{kernel}: {counts}")
+
+
+def run_two_processes(data_dir: str) -> dict:
+    """(k): CLI processes on the one card (``coordinator=127.0.0.1:PORT
+    processes=2 processid=I``; each works on ``cuda:(I % cards)``).  ``-c``
+    of (a)'s first timestep in one and in two processes: the archives equal
+    and the payloads (a)'s; ``-c`` of (c)'s first timestep with
+    ``archive=bundle`` in two processes (the histograms summed over gloo):
+    the bundle members equal a single-process run's, each process's bundle
+    named by its rank; ``-d`` of (a)'s archive in one and in two processes
+    (a timestep each): (a)'s plotfiles."""
+    from wavelet_tpu_torch.io import bundle
+
+    step = TIMESTEPS[0]
+
+    def c_args(comp, keys):
+        return [f"datadir={data_dir}", f"minfile={step}", f"maxfile={step}",
+                "minlevel=0", "maxlevel=1",
+                "components=" + " ".join(COMPONENTS), *keys,
+                f"compresseddir={comp}", "-c"]
+
+    out, archs = {}, {}
+    for n in (1, 2):
+        comp = os.path.join(WORK, f"k_a{n}_arch") + os.sep
+        wall, counts = _cli_procs(f"k_a{n}", c_args(comp, [f"keep={KEEP}"]),
+                                  n)
+        _each_launched(f"k, -c a, {n} process(es)", counts, "haar_forward")
+        archs[n] = _tree(comp)
+        out[f"a_compress_{n}p"] = {"wall_s": wall, "launches": counts}
+    payloads = _payloads_of_first_step("a")
+    if archs[2] != archs[1] or not payloads or \
+            {k: v for k, v in archs[2].items() if k.endswith(".xz")} \
+            != payloads:
+        raise AssertionError("(k) two-process -c differs from one process "
+                             "or from (a)'s payloads")
+    keys = ["thresholdmode=global", "keepfraction=0.02", "scales=2",
+            "archive=bundle"]
+    one = os.path.join(WORK, "k_c1_arch") + os.sep
+    _run_cli(c_args(one, keys) + [f"device={DEV}"])
+    two = os.path.join(WORK, "k_c2_arch") + os.sep
+    wall, counts = _cli_procs("k_c2", c_args(two, keys), 2)
+    _each_launched("k, -c c bundle", counts, "forward_hist")
+    names = bundle.list_bundles(two)
+    sets = [bundle.BundleSet(d) for d in (one, two)]
+    if (sorted(names) != [bundle.bundle_name(0, p) for p in (0, 1)]
+            or set(sets[0].keys()) != set(sets[1].keys())
+            or any(sets[0].blob(*k) != sets[1].blob(*k)
+                   for k in sets[0].keys())):
+        raise AssertionError(f"(k) two-process bundles {names} differ from "
+                             "the single-process run's members")
+    sidecars = [{k: v for k, v in _tree(d).items() if k not in names
+                 and not k.endswith(".wtb")} for d in (one, two)]
+    if sidecars[0] != sidecars[1]:
+        raise AssertionError("(k) two-process sidecars differ")
+    out["c_bundle_compress_2p"] = {"wall_s": wall, "launches": counts,
+                                   "bundles": names,
+                                   "members": len(sets[1].keys())}
+    comp = os.path.join(WORK, "a_arch_cuda") + os.sep
+    want = _tree(os.path.join(WORK, "a_out_cuda"))
+    for n in (1, 2):
+        dst = os.path.join(WORK, f"k_d{n}_out") + os.sep
+        wall, counts = _cli_procs(
+            f"k_d{n}", [f"compresseddir={comp}", f"out={dst}", "-d"], n)
+        _each_launched(f"k, -d a, {n} process(es)", counts, "haar_inverse")
+        if _tree(dst) != want:
+            raise AssertionError(f"(k) -d in {n} process(es) differs from "
+                                 "(a)'s plotfiles")
+        out[f"a_decompress_{n}p"] = {"wall_s": wall, "launches": counts}
+    return out
+
+
 def _time_ms(fn, x, reps: int = 7, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
     calls, by CUDA events."""
@@ -1259,6 +1734,23 @@ def main() -> int:
     g.update(run_check_info("a"))
     print(f"estimate, check, info (g; {card}; "
           f"{time.perf_counter() - t0:.1f} s): " + json.dumps(g))
+    for name, what, run in (
+            ("h", "-d preview=1|2 of (a) and (b)", lambda: run_previews(done)),
+            ("i", "first timestep of (a) and (c) over a two-entry mesh",
+             lambda: run_mesh(data_dir)),
+            ("j", f"one {GIANT_N}^3 box split along X, scales=1|2, then "
+                  "preview=2", run_giant),
+            ("k", "two processes on one card: -c (a), -c (c) bundle, -d (a)",
+             lambda: run_two_processes(data_dir))):
+        t0 = time.perf_counter()
+        res = run()
+        secs = time.perf_counter() - t0
+        for counts in _launch_dicts(res):
+            for k, v in counts.items():
+                launches[k] += v
+        print(f"wall ({name}): {secs:.1f} s")
+        print(f"end to end ({name}, {what}; {card}; {secs:.1f} s): "
+              + json.dumps(res))
     timing = phase_timing(device, rows)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="

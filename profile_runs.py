@@ -8,7 +8,9 @@ each of its configurations ((a)-(c) dense, (d) ``scales=2
 transfer=sparse`` on ``-c`` and ``-d``, (e) (a) under
 ``WAVELET_TPU_LAYOUT=halves``, the lane-packed kernels) runs ``-c`` and
 ``-d`` with ``device=cuda`` once to warm up and once under
-``torch.profiler``.  For
+``torch.profiler``; then (h) ``-d preview=P`` of (a)'s and (b)'s archives,
+(i) (a)'s ``-c`` and ``-d`` through the API over a two-entry mesh, and (j)
+the 256^3 giant box's ``-c`` and ``-d`` at one scale over that mesh.  For
 each run it
 reports the wall seconds of the profiled run, the device busy time (the
 union of the CUDA activity intervals: kernels, copies, memsets), the idle
@@ -56,22 +58,50 @@ def _device_busy(events):
     return busy / 1e3, dict(sorted(by_name.items(), key=lambda kv: -kv[1][0]))
 
 
-def _profiled(args):
+def _profiled(run):
+    """``run()`` (-> the pipeline's stats) once to warm up, then once under
+    the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    chip_smoke._run_cli(args)          # warm-up: build, allocator, caches
+    run()                              # warm-up: build, allocator, caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, stats = chip_smoke._run_cli(args)
+        stats = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, by_name = _device_busy(prof.events())
     return {"wall_s": wall, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / 1e3 / wall, "by_name_ms": by_name,
             "stats": stats}
+
+
+def _cli(args):
+    return lambda: chip_smoke._run_cli(args)[1]
+
+
+def _api(report, name, data_dir, steps, mesh, c_opts, d_opts=None,
+         components=chip_smoke.COMPONENTS, max_level=1):
+    """``-c`` then ``-d`` through the API over ``mesh``, each profiled."""
+    import wavelet_tpu_torch
+
+    comp = os.path.join(WORK, f"{name}_arch") + os.sep
+    out = os.path.join(WORK, f"{name}_out") + os.sep
+    _report(report, f"{name}_compress", lambda: wavelet_tpu_torch.compress(
+        data_dir, comp, min_time=steps[0], max_time=steps[-1],
+        components=list(components), min_level=0, max_level=max_level,
+        device="cuda", mesh=mesh, **c_opts))
+    _report(report, f"{name}_decompress",
+            lambda: wavelet_tpu_torch.decompress(
+                comp, out, device="cuda", mesh=mesh, **(d_opts or {})))
+
+
+def _report(report, name, run) -> None:
+    r = report[name] = _profiled(run)
+    print(f"{name}: wall {r['wall_s']:.3f} s, device busy "
+          f"{r['device_busy_ms']:.1f} ms, idle share {r['idle_share']:.4f}")
 
 
 def main(argv=None) -> int:
@@ -105,10 +135,21 @@ def main(argv=None) -> int:
                   "device=cuda", "-d"]
         for what, args in (("compress", c_args), ("decompress", d_args)):
             with chip_smoke._env(env):
-                r = report[f"{name}_{what}"] = _profiled(args)
-            print(f"{name} {what}: wall {r['wall_s']:.3f} s, device busy "
-                  f"{r['device_busy_ms']:.1f} ms, idle share "
-                  f"{r['idle_share']:.4f}")
+                _report(report, f"{name}_{what}", _cli(args))
+    for name, depth, keys, _path in chip_smoke.PREVIEWS:
+        comp = os.path.join(WORK, f"{name}_arch") + os.sep
+        out = os.path.join(WORK, f"{name}_preview{depth}") + os.sep
+        _report(report, f"h_{name}_preview{depth}", _cli(
+            [f"compresseddir={comp}", f"out={out}", f"preview={depth}",
+             *keys, "device=cuda", "-d"]))
+    mesh = chip_smoke._two_entry_mesh()
+    _api(report, "i_a", data_dir, steps, mesh, {"keep": chip_smoke.KEEP})
+    giant_dir = os.path.join(WORK, "giant_data")
+    chip_smoke.make_giant_dataset(giant_dir, chip_smoke.GIANT_N)
+    giant = {"giant_box_bytes": chip_smoke.GIANT_BYTES}
+    _api(report, "j_scales1", giant_dir, [chip_smoke.GIANT_STEP], mesh,
+         {"keep": chip_smoke.KEEP, "codec": "raw", **giant}, giant,
+         ["density"], 0)
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
     with open(opts.out, "w") as f:

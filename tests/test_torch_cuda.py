@@ -298,3 +298,99 @@ def test_rmse_batch_cuda_close_to_cpu(cuda_device):
     got = engine.CodecEngine(device="cuda").rmse_batch(a, b)
     want = engine.CodecEngine(device="cpu").rmse_batch(a, b)
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def _coeff_batch(dims, scales, n, seed):
+    """A logical-order coefficient batch of ``n`` random boxes' pyramids."""
+    from wavelet_tpu_torch.core import haar
+
+    x = torch.from_numpy(_batch((n,) + dims, seed))
+    items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=b)
+             for b in range(n)]
+    return batching.ShapeBatch(
+        shape=dims, data=haar.haar3d_forward_multi(x, scales).numpy(),
+        items=items, n_valid=n, layout="halves", scales=scales)
+
+
+@pytest.mark.parametrize("scales,depth", [(1, 1), (1, 2), (2, 1), (2, 2),
+                                          (3, 1), (2, 3)])
+def test_preview_cuda_equals_cpu(cuda_device, scales, depth):
+    batch = _coeff_batch((16, 8, 8), scales, 4, 13)
+    got, h2d = engine.CodecEngine(device="cuda", scales=scales) \
+        .preview_shapebatch(batch, depth)
+    want, want_h2d = engine.CodecEngine(device="cpu", scales=scales) \
+        .preview_shapebatch(batch, depth)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert h2d == want_h2d and (h2d == 0) == (depth == scales)
+
+
+def test_lowpass_on_the_card_equals_cpu(cuda_device):
+    from wavelet_tpu_torch.core import haar
+
+    x = torch.from_numpy(_batch((3, 16, 8, 24), 14))
+    for depth in (1, 2, 3):
+        np.testing.assert_array_equal(
+            _bits(haar.haar3d_lowpass(x.to(cuda_device), depth)),
+            _bits(haar.haar3d_lowpass(x, depth)))
+
+
+def _mesh2():
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
+
+    n = 2 if torch.cuda.device_count() >= 2 else 1
+    return mesh_lib.data_mesh([f"cuda:{i % n}" for i in range(2)])
+
+
+@pytest.mark.parametrize("dims,scales", [((16, 16, 16), 1), ((16, 8, 8), 2),
+                                         ((9, 6, 5), 1)])
+def test_two_entry_mesh_cuda_equals_cpu(cuda_device, dims, scales):
+    data = _batch((6,) + dims, 15)
+    data[:, 1:] *= 1e-4
+    items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=b)
+             for b in range(5)]
+    outs = []
+    for eng in (engine.CodecEngine(device="cuda", scales=scales,
+                                   mesh=_mesh2()),
+                engine.CodecEngine(device="cpu", scales=scales)):
+        batch = batching.ShapeBatch(shape=dims, data=data.copy(),
+                                    items=items, n_valid=5)
+        before = dict(haar_cuda.launches)
+        cb, t32 = eng.compress_shapebatch(batch, 0.999)
+        if eng.device.type == "cuda" and scales == 1:
+            # one launch per row chunk
+            assert haar_cuda.launches["haar_forward"] == \
+                before["haar_forward"] + 2
+        hb, hist = eng.forward_hist_shapebatch(batch)
+        sparse, st32 = eng.compress_shapebatch_sparse(batch, 0.999)
+        outs.append((cb.data, t32, hb.data, hist, sparse.counts[:5], st32,
+                     eng.decompress_shapebatch(cb).data))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                      np.asarray(b).view(np.int32))
+
+
+@pytest.mark.parametrize("scales", [1, 2])
+def test_giant_box_over_two_entries_equals_unsplit(cuda_device, scales):
+    dims = (64, 32, 32)
+    data = _batch((1,) + dims, 16)
+    items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=0)]
+    giant = engine.CodecEngine(device="cuda", scales=scales, mesh=_mesh2(),
+                               giant_box_bytes=1 << 17)
+    plain = engine.CodecEngine(device="cpu", scales=scales)
+    assert giant.giant_ok(dims)
+    outs = []
+    for eng in (giant, plain):
+        batch = batching.ShapeBatch(shape=dims, data=data.copy(),
+                                    items=items, n_valid=1)
+        before = {**haar_cuda.launches, **pyramid_cuda.launches}
+        cb, t32 = eng.compress_shapebatch(batch, 0.999)
+        if eng is giant:
+            fwd = "haar_forward" if scales == 1 else "pyramid_forward"
+            after = {**haar_cuda.launches, **pyramid_cuda.launches}
+            assert after[fwd] == before[fwd] + 2      # one per X-slab
+        hb, hist = eng.forward_hist_shapebatch(batch)
+        outs.append((cb.data, t32, hb.data, hist,
+                     eng.decompress_shapebatch(cb).data))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                      np.asarray(b).view(np.int32))

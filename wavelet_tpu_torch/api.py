@@ -11,7 +11,13 @@
 Global thresholds, pyramids and sparse transfer take the JAX package's
 keyword names: ``threshold_mode="global", keep_fraction=0.02, scales=2,
 global_cache_bytes=...``, ``transfer="dense"|"sparse"|"auto"`` (for both
-calls).  Every other knob is a keyword named after its
+calls), ``preview=p`` and ``giant_box_bytes=``.  ``mesh=`` (a
+:class:`~wavelet_tpu_torch.runtime.mesh.DeviceMesh` from
+:func:`~wavelet_tpu_torch.runtime.mesh.data_mesh`, of ``device``'s type)
+splits the batches over its entries, like the CLI's ``devices=N``; a
+multi-process run joins its process group first
+(:func:`~wavelet_tpu_torch.runtime.mesh.init_distributed`).  Every other
+knob is a keyword named after its
 :class:`~wavelet_tpu_torch.pipeline.common.Config` field; unknown names
 raise ``TypeError``.  :func:`estimate` (CLI ``-estimate``), :func:`check`
 (``-check``) and :func:`info` (``-info``) are the JAX package's calls of
@@ -49,29 +55,30 @@ def _build_config(base: dict, options: dict) -> _common.Config:
 def compress(data_dir: str, compressed_dir: str, *, min_time: str,
              max_time: str, components: list, min_level: int = 0,
              max_level: int = 0, keep: float = 0.999, device: str = "cuda",
-             **options) -> dict:
+             mesh=None, **options) -> dict:
     """Compress plotfiles ``min_time..max_time`` into an archive (CLI -c)."""
     cfg = _build_config(dict(
         data_dir=data_dir, compressed_dir=compressed_dir, min_time=min_time,
         max_time=max_time, components=list(components), min_level=min_level,
         max_level=max_level, keep=keep, device=device), options)
-    return _compress_run(cfg)
+    return _compress_run(cfg, mesh=mesh)
 
 
 def decompress(compressed_dir: str, out_dir: str, *, device: str = "cuda",
-               **options) -> dict:
+               mesh=None, **options) -> dict:
     """Regenerate plotfiles from an archive (CLI -d).  Partial retrieval
     via ``min_time=``/``max_time=``, ``components=[...]``,
-    ``levels_upto=L``; ``transfer=`` as for :func:`compress`."""
+    ``levels_upto=L``; ``preview=p`` regenerates the low band at 1/2**p
+    resolution per axis; ``transfer=`` as for :func:`compress`."""
     cfg = _build_config(dict(compressed_dir=compressed_dir, out_dir=out_dir,
                              device=device), options)
-    return _decompress_run(cfg)
+    return _decompress_run(cfg, mesh=mesh)
 
 
 def estimate(data_dir: str, *, min_time: str, components: list,
              max_time: str | None = None, min_level: int = 0,
              max_level: int | None = None, keep: float = 0.999,
-             device: str = "cuda", **options) -> dict:
+             device: str = "cuda", mesh=None, **options) -> dict:
     """Quality/size estimate without keeping an archive (CLI -estimate).
 
     Sweeps: ``keep_sweep=[k1, k2, ...]`` (box mode) or
@@ -84,7 +91,7 @@ def estimate(data_dir: str, *, min_time: str, components: list,
         components=list(components), min_level=min_level,
         max_level=min_level if max_level is None else max_level,
         keep=keep, device=device), options)
-    return _estimate_run(cfg)
+    return _estimate_run(cfg, mesh=mesh)
 
 
 def check(compressed_dir: str) -> dict:

@@ -18,10 +18,17 @@ unavailable)::
         minlevel=0 components="temp" keep="0.99 0.999" fastestimate=1 \
         -estimate
     python -m wavelet_tpu_torch.cli compresseddir=out/ -check
+    python -m wavelet_tpu_torch.cli compresseddir=out/ out=prev/ \
+        preview=1 -d
+    python -m wavelet_tpu_torch.cli ... devices=2 giantbox=268435456 -c
+    python -m wavelet_tpu_torch.cli ... coordinator=127.0.0.1:29500 \
+        processes=2 processid=0 -c      # and processid=1 in a second process
 
-``transfer=dense|sparse|auto`` works on ``-c`` and ``-d``.  Keys not yet
-ported (preview, multi-device and multi-process keys) raise
-``NotImplementedError``.
+``transfer=dense|sparse|auto`` works on ``-c`` and ``-d``.  ``devices=N``
+runs over a mesh of N entries (``cuda:0..N-1``, or N CPU entries with
+``device=cpu``); ``coordinator=`` joins a gloo process group of
+``processes=`` processes, each working on ``cuda:(processid % cards)``.
+``giantmesh=global`` is not ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,15 +67,19 @@ Keys: device=cuda|cpu (default cuda)  payload=f32|q16  codec=xz|raw
       sparse iff the measured link is below the device-stage breakeven)
       fastestimate=1 (-estimate in memory)  devicemetrics=1 (-estimate
       RMSE on the device)
+      preview=p (-d: the low band at 1/2^p resolution per axis)
+      devices=N (a mesh of N devices: cuda:0..N-1, or N CPU entries with
+      device=cpu)  giantbox=BYTES (boxes >= this split WITHIN the box
+      along X over the mesh; default 1 GiB, needs devices=N > 1)
+      coordinator=host:port processes=N processid=I (multi-process, gloo)
+      profile=DIR (torch.profiler trace)
 Sweeps (-estimate only): keep="k1 k2 ..." or keepfraction="f1 f2 ..."
 Kernel route: WAVELET_TPU_LAYOUT=auto|interleaved|halves (halves: the
 lane-packed kernels at scales=1)
 """
 
 # keys of wavelet_tpu.cli whose non-default values this port does not run
-_UNPORTED = {"preview": "0", "devices": "1",
-             "coordinator": None, "processes": None, "processid": None,
-             "giantbox": None, "giantmesh": "local", "profile": None}
+_UNPORTED = {"giantmesh": "local"}
 
 
 def _kv(args):
@@ -102,10 +113,14 @@ def parse_argv(argv):
                          "decompression, -estimate for estimate mode, "
                          "-check for archive validation, or -info for an "
                          "archive summary! (-h for usage)")
+    if kv.get("giantmesh", "local") not in ("local", "global"):
+        raise SystemExit(f"Unknown giantmesh={kv['giantmesh']!r} "
+                         "(local|global)")
     for key, default in _UNPORTED.items():
         if key in kv and kv[key] != default:
             raise NotImplementedError(
-                f"{key}={kv[key]} is not yet ported to wavelet_tpu_torch")
+                f"{key}={kv[key]} is not ported to wavelet_tpu_torch yet "
+                "(giant boxes split over this process's mesh only)")
 
     def need(key):
         if key not in kv:
@@ -118,6 +133,15 @@ def parse_argv(argv):
             # a typo'd transport would otherwise silently run dense
             raise SystemExit(f"Unknown transfer={t!r} (dense|sparse|auto)")
         return t
+
+    def giantbox_key():
+        if "giantbox" not in kv:
+            return None
+        v = int(kv["giantbox"])
+        if v <= 0:
+            raise SystemExit(f"giantbox={kv['giantbox']} must be a "
+                             "positive byte count")
+        return v
 
     def globalcache_key():
         if "globalcache" not in kv:
@@ -134,6 +158,7 @@ def parse_argv(argv):
         raise SystemExit(f"Unknown device={cfg.device!r} (cuda|cpu)")
     cfg.prefetch = int(kv.get("prefetch", "0"))
     cfg.transfer = transfer_key()
+    cfg.giant_box_bytes = giantbox_key()
     if mode in ("c", "estimate"):
         cfg.data_dir = need("datadir")
         cfg.min_time = need("minfile")
@@ -195,6 +220,14 @@ def parse_argv(argv):
         if cfg.out_precision not in ("f64", "f32"):
             raise SystemExit(
                 f"Unknown outprec={cfg.out_precision!r} (f64|f32)")
+        cfg.preview = int(kv.get("preview", "0"))
+        if cfg.preview < 0:
+            raise SystemExit(f"preview={cfg.preview} must be >= 0")
+        if cfg.preview and cfg.transfer == "sparse":
+            # preview ships only the small low-band corner already; the
+            # pair transport has nothing left to save there
+            raise SystemExit("preview mode uses the dense transfer "
+                             "(drop transfer=sparse)")
         # partial retrieval: only selected timesteps / components / levels
         cfg.min_time = kv.get("minfile", "")
         cfg.max_time = kv.get("maxfile", "")
@@ -227,25 +260,77 @@ def main(argv=None):
     from wavelet_tpu_torch.pipeline.compress import compress_run
     from wavelet_tpu_torch.pipeline.decompress import decompress_run
     from wavelet_tpu_torch.pipeline.estimate import estimate_run
+    from wavelet_tpu_torch.runtime import debug
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
+
+    kv = _kv(argv)
+    try:
+        if kv.get("coordinator"):
+            # multi-process: coordinator=host:port processid=I processes=N
+            n, i = (int(kv[k]) if k in kv else None
+                    for k in ("processes", "processid"))
+            mesh_lib.init_distributed(kv["coordinator"], n, i)
+            if cfg.device == "cuda":
+                import torch
+
+                mesh_lib.resolve_device("cuda")   # raises without CUDA
+                # each process works on its rank's card
+                torch.cuda.set_device(mesh_lib.local_cuda_index())
+        mesh = _mesh(cfg.device, int(kv.get("devices", "1")))
+    except (KeyError, ValueError) as e:
+        log.error("bad argument: %s", e)
+        _leave_group()
+        return 1
 
     try:
-        if mode == "c":
-            compress_run(cfg)
-        elif mode == "estimate":
-            estimate_run(cfg)
-        elif mode == "check":
-            if check_run(cfg)["errors"]:
-                return 1
-        elif mode == "info":
-            info_run(cfg)
-        else:
-            decompress_run(cfg)
+        with debug.maybe_profile(kv.get("profile")):
+            if mode == "c":
+                compress_run(cfg, mesh=mesh)
+            elif mode == "estimate":
+                estimate_run(cfg, mesh=mesh)
+            elif mode == "check":
+                if check_run(cfg)["errors"]:
+                    return 1
+            elif mode == "info":
+                info_run(cfg)
+            else:
+                decompress_run(cfg, mesh=mesh)
     except (KeyError, ValueError, OSError) as e:
         # user-input problems (bad component name, missing/corrupt archive
         # files) get a clean error instead of a traceback
         log.error("%s", e)
         return 1
+    finally:
+        _leave_group()
     return 0
+
+
+def _mesh(device: str, n_dev: int):
+    """``devices=N``: a mesh of ``cuda:0..N-1`` (raising, as the JAX CLI
+    does, when fewer cards exist), or of N CPU entries; None for N = 1."""
+    if n_dev <= 1:
+        return None
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
+
+    if device == "cpu":
+        return mesh_lib.data_mesh(["cpu"] * n_dev)
+    import torch
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_dev > have:
+        # a truncated mesh would run the split program on fewer cards
+        # than the user asked for
+        raise ValueError(
+            f"devices={n_dev} but only {have} device(s) available")
+    return mesh_lib.data_mesh([f"cuda:{i}" for i in range(n_dev)])
+
+
+def _leave_group() -> None:
+    """Tear down the process group, if this run joined one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -33,7 +33,7 @@ import torch
 
 __all__ = ["haar3d_forward", "haar3d_inverse", "forward_flat",
            "inverse_from_flat", "haar3d_forward_multi",
-           "haar3d_inverse_multi"]
+           "haar3d_inverse_multi", "haar3d_lowpass"]
 
 
 def _fwd_last(x: torch.Tensor) -> torch.Tensor:
@@ -120,6 +120,27 @@ def haar3d_inverse_multi(c: torch.Tensor, scales: int) -> torch.Tensor:
         else:
             out[..., :cx, :cy, :cz] = sub
     return out
+
+
+def _low_last(x: torch.Tensor) -> torch.Tensor:
+    """The low (pairwise-mean) half of a forward pass along the last axis;
+    requires an even length."""
+    v = x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2))
+    return (v[..., 0] + v[..., 1]) * 0.5
+
+
+def haar3d_lowpass(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """``depth`` rounds of low-pass only: the LLL corner block that
+    :func:`haar3d_forward_multi` stores, without any detail band.  Same
+    per-axis order (Z, Y, X per scale) and the same separate add and
+    multiply, so the result is bitwise the pyramid's corner.  Trailing
+    dims must be divisible by ``2**depth``; output is ``[..., X >> depth,
+    Y >> depth, Z >> depth]``."""
+    for _ in range(depth):
+        x = _along(_low_last, x, -1)   # Z
+        x = _along(_low_last, x, -2)   # Y
+        x = _along(_low_last, x, -3)   # X
+    return x.contiguous()
 
 
 def forward_flat(x: torch.Tensor) -> torch.Tensor:

@@ -25,9 +25,11 @@ __all__ = ["Config", "clean_string", "format_files", "format_levels",
 @dataclass
 class Config:
     """Reference ``Config`` (argparse.h:7-16) plus the extension keys the
-    port runs, under the JAX package's names.  Its other keys
-    (``preview``, multi-device and multi-process keys) are not ported: the
-    port runs on one device."""
+    port runs, under the JAX package's names.  The device mesh is not a
+    field: the pipelines take it as ``mesh=`` (CLI ``devices=N``), and a
+    multi-process run joins its process group first (CLI
+    ``coordinator=``, ``runtime/mesh.init_distributed``).  The JAX
+    package's ``giant_mesh="global"`` is not ported."""
 
     data_dir: str = ""
     min_time: str = ""
@@ -69,6 +71,14 @@ class Config:
     keep_sweep: list | None = None    # estimate: several keeps in one run
     keep_fraction_sweep: list | None = None  # estimate + global: several
                                       #   keepfractions in one run
+    preview: int = 0                  # decompress: regenerate the low-band
+                                      #   approximation at 1/2**preview
+                                      #   resolution per axis (0 = full)
+    giant_box_bytes: int | None = None  # boxes >= this many bytes split
+                                      #   along X over a mesh of >= 2
+                                      #   entries (None = 1 GiB or
+                                      #   WAVELET_TPU_GIANTBOX; CLI
+                                      #   giantbox=BYTES)
     device: str = "cuda"              # "cuda" (kernels) | "cpu" (plain)
 
 

@@ -1,7 +1,7 @@
 """Compression pipeline on PyTorch (reference: ``compress(Config)``,
 modes.cpp:24-112).
 
-Counterpart of ``wavelet_tpu.pipeline.compress`` for one device:
+Counterpart of ``wavelet_tpu.pipeline.compress``:
 
   1. host: discover files, parse headers + Cell_H box lists, write the
      five sidecar files first (the archive is then resumable state);
@@ -19,8 +19,16 @@ magnitude histogram of every item (keeping whole timesteps' coefficients
 in host RAM up to the ``globalcache`` budget), one threshold keeps
 ``keep_fraction`` of all coefficients, and pass 2 packs at that threshold,
 re-reading the timesteps pass 1 did not keep; pass 2 fetches dense
-coefficients, as in the JAX package.  The JAX package's other modes
-(multi-device, multi-process) are not ported.
+coefficients, as in the JAX package.
+
+``mesh=`` (``runtime/mesh.data_mesh``, CLI ``devices=N``) splits every
+batch over the mesh's entries, and giant boxes along X.  In a
+multi-process run (``runtime/mesh.init_distributed``, CLI
+``coordinator=``) each process owns a contiguous ``process_local_slice``
+of the global work-item sequence, reads only the timesteps that hold its
+items and writes its own payloads (bundles carry its process index);
+every process writes the same sidecars (atomic renames, last writer
+wins).  Global mode sums the processes' histograms before the threshold.
 
 :func:`compress_collected` runs the same device codec and host pack over a
 run already in memory (``common.collect_run``); the estimate mode
@@ -43,6 +51,7 @@ from wavelet_tpu_torch.runtime.debug import phase_timer
 from wavelet_tpu_torch.core import threshold
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
+from wavelet_tpu_torch.runtime import mesh as mesh_lib
 
 log = logging.getLogger("wavelet_tpu_torch")
 
@@ -177,14 +186,34 @@ def _new_stats() -> dict:
     return stats
 
 
-def _iter_timestep_items(meta: common.RunMeta, t: int, lv_boxes):
-    """This timestep's (WorkItem, array) pairs in (t, lev, box, comp) order."""
+def _allreduce_histogram(hist: np.ndarray) -> np.ndarray:
+    """Sum int64 histograms across the processes (gloo ``all_reduce``).
+    The sum is exact in int64, so the JAX package's two 31-bit limbs are
+    not needed; every process gets the same sum, and so the same global
+    threshold."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.from_numpy(np.ascontiguousarray(hist, np.int64))
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t.numpy()
+
+
+def _iter_timestep_items(meta: common.RunMeta, t: int, lv_boxes,
+                         lo: int, hi: int, base: int):
+    """This timestep's (WorkItem, array) pairs whose global item index
+    (``base`` is the timestep's first) falls in this process's ``[lo,
+    hi)``, in (t, lev, box, comp) order."""
+    g = base
     for li in range(len(meta.levels)):
         for b in range(meta.counts[t][li]):
             arr = lv_boxes[li].boxes[b]
             for c, comp_idx in enumerate(meta.comp_idxs):
-                yield (batching.WorkItem(t=t, level=li, comp_idx=comp_idx,
-                                         box=b), arr[c])
+                if lo <= g < hi:
+                    yield (batching.WorkItem(t=t, level=li,
+                                             comp_idx=comp_idx, box=b),
+                           arr[c])
+                g += 1
 
 
 def _iter_prefetched(n_times: int, read_one, depth: int):
@@ -241,6 +270,8 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
                  "(%.2f of %.2f GiB budget); pass 2 re-reads the rest",
                  len(cache), n_times, cache_used / 2**30, budget / 2**30)
     stats["global_cached_timesteps"] = len(cache)
+    if mesh_lib.process_count() > 1:
+        hist = _allreduce_histogram(hist)
     tval = threshold.threshold_from_histogram(hist, cfg.keep_fraction)
     log.info("Global magnitude threshold (keep_fraction=%s): %s",
              cfg.keep_fraction, tval)
@@ -279,11 +310,13 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
     return bundle_bytes
 
 
-def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
+def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
+                        mesh=None) -> dict:
     """One-timestep-at-a-time compression: read -> device codec -> host
     pack -> free.  Peak host memory is bounded by one timestep (two with
     ``prefetch=1``), plus the ``globalcache`` budget in global mode."""
-    eng = engine.CodecEngine(device=cfg.device, scales=cfg.scales)
+    eng = engine.CodecEngine(device=cfg.device, scales=cfg.scales, mesh=mesh,
+                             giant_box_bytes=cfg.giant_box_bytes)
     packer = engine.HostPacker(payload=cfg.payload, codec=cfg.codec,
                                xz_preset=cfg.xz_preset,
                                xz_delta=cfg.xz_delta,
@@ -292,14 +325,25 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta) -> dict:
             if cfg.resume else None)
 
     stats = _new_stats()
+    ncomp = len(meta.comp_idxs)
+    bases = np.concatenate(
+        [[0], np.cumsum([sum(meta.counts[t]) * ncomp
+                         for t in range(len(meta.files))])]).astype(int)
+    sl = mesh_lib.process_local_slice(int(bases[-1]))
+    lo, hi = sl.start, sl.stop
 
     def timestep_batches(t, resume_filter: bool):
-        """Read timestep t and plan its batches (data freed with them);
-        ``resume_filter`` drops the items already in the archive."""
+        """Read timestep t and plan this process's batches of it (data
+        freed with them); ``resume_filter`` drops the items already in
+        the archive.  A timestep with none of this process's items is not
+        read."""
+        if bases[t + 1] <= lo or bases[t] >= hi:
+            return []
         t0 = time.perf_counter()
         lv_boxes = [plotfile.read_level(meta.files[t], lev, meta.comp_idxs)
                     for lev in meta.levels]
-        items = list(_iter_timestep_items(meta, t, lv_boxes))
+        items = list(_iter_timestep_items(meta, t, lv_boxes, lo, hi,
+                                          int(bases[t])))
         if resume_filter:
             kept = [p for p in items
                     if not _exists(cfg.compressed_dir, p[0], have)]
@@ -343,16 +387,21 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
                        resume: bool = False, scales: int = 1,
                        payload: str = "f32", transfer: str = "dense",
                        archive_format: str = "files",
-                       device: str = "cuda") -> dict:
+                       device: str = "cuda", mesh=None,
+                       giant_box_bytes: int | None = None) -> dict:
     """Device codec + host pack for already-collected data; writes payloads
     only (no sidecars).  Returns stats.  ``threshold_mode`` is ``"box"``
     (the reference's per-(box, component) rule) or ``"global"`` (one
     magnitude threshold keeping ``keep_fraction`` of all coefficients,
-    from the summed histogram)."""
-    eng = engine.CodecEngine(device=device, scales=scales)
+    from the summed histogram).  In a multi-process run each process
+    takes its ``process_local_slice`` of the items."""
+    eng = engine.CodecEngine(device=device, scales=scales, mesh=mesh,
+                             giant_box_bytes=giant_box_bytes)
     packer = packer or engine.HostPacker(payload=payload,
                                          archive_format=archive_format)
     items = list(_iter_workitems(run))
+    if mesh_lib.process_count() > 1:
+        items = items[mesh_lib.process_local_slice(len(items))]
     skipped = 0
     have = _have_index(out_dir, packer.archive_format) if resume else None
     if resume and threshold_mode != "global":
@@ -374,6 +423,8 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
             cb, h = eng.forward_hist_shapebatch(batch)
             coeff_batches.append(cb)
             hist += h
+        if mesh_lib.process_count() > 1:
+            hist = _allreduce_histogram(hist)
         t = threshold.threshold_from_histogram(hist, keep_fraction)
         log.info("Global magnitude threshold (keep_fraction=%s): %s",
                  keep_fraction, t)
@@ -404,8 +455,9 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
     return stats
 
 
-def compress_run(cfg: common.Config) -> dict:
-    """Full compression mode (modes.cpp:24-112), streaming per timestep."""
+def compress_run(cfg: common.Config, mesh=None) -> dict:
+    """Full compression mode (modes.cpp:24-112), streaming per timestep;
+    ``mesh`` as in :func:`compress_collected`."""
     engine.resolve_device(cfg.device)   # fail before touching the archive
     if cfg.threshold_mode == "global" and cfg.keep_fraction is None:
         raise ValueError("global threshold mode requires keep_fraction")
@@ -434,7 +486,7 @@ def compress_run(cfg: common.Config) -> dict:
 
     with phase_timer(
             "compress", message="Compression completed in %s seconds.") as ph:
-        stats = _compress_streaming(cfg, meta)
+        stats = _compress_streaming(cfg, meta, mesh)
         ph.nbytes = stats["input_bytes"]
     stats["preprocess_seconds"] = pre.seconds
     stats["compress_seconds"] = ph.seconds

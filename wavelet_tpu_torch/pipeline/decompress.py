@@ -19,7 +19,14 @@ and scatters them there, for box-mode and global-mode archives alike.
 Under ``WAVELET_TPU_LAYOUT=halves`` a bucket whose boxes pack
 (``CodecEngine.pack_factor``) is unpacked into a lane-packed batch and
 inverted by ``packed_inverse``; a sparse bucket still scatters logical
-rows and comes back one box per row.  Preview is not ported.
+rows and comes back one box per row.
+
+Preview (``cfg.preview = p``, CLI ``preview=p``) regenerates the wavelet
+low band at ``1/2**p`` cells per axis on the same physical domain
+(``CodecEngine.preview_shapebatch``); it composes with partial retrieval.
+With ``mesh=`` the engine splits each bucket over the mesh (and giant
+boxes along X); in a multi-process run (``runtime/mesh``) each process
+regenerates its ``process_local_slice`` of the selected timesteps.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from wavelet_tpu_torch.runtime import batching
 from wavelet_tpu_torch.runtime.debug import phase_timer
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
+from wavelet_tpu_torch.runtime import mesh as mesh_lib
 
 log = logging.getLogger("wavelet_tpu_torch")
 
@@ -45,11 +53,20 @@ __all__ = ["decompress_run", "iter_decompressed_timesteps"]
 def _unpack_bucket(cfg, eng, packer, dims, bucket_items, arena=None):
     """HOST stage of one shape bucket: read + decode + the transport
     decision.  Returns ``(kind, payload, h2d)`` where kind is "dense"
-    (payload = a filled coefficient ShapeBatch) or "sparse" (payload =
-    (shell batch, idx, vals)), and ``h2d`` the bytes the device stage
-    ships — no device work happens here, so a prefetch worker can run it
-    behind the previous bucket's inverse."""
+    (payload = a filled coefficient ShapeBatch), "sparse" (payload =
+    (shell batch, idx, vals)) or "preview" (payload = a logical-order
+    coefficient batch; its h2d is decided by the device stage), and
+    ``h2d`` the bytes the device stage ships — no device work happens
+    here, so a prefetch worker can run it behind the previous bucket's
+    inverse."""
     pad = eng.pad_multiple_for(dims)
+    if cfg.preview:
+        batch = batching.empty_batch(bucket_items, dims, pack=1,
+                                     pad_multiple=pad, layout="halves",
+                                     scales=eng.eff_scales(dims),
+                                     arena=arena)
+        packer.unpack_into(cfg.compressed_dir, batch)
+        return "preview", batch, 0
 
     def dense_batch():
         return batching.empty_batch(bucket_items, dims,
@@ -95,7 +112,8 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
                          counts, dimensions, stats, arena=None):
     """Decode + inverse-transform every box of timestep ``t``.
 
-    Returns ``regen``: [lev][box] -> (C, X, Y, Z) float32, and adds the
+    Returns ``regen``: [lev][box] -> (C, X, Y, Z) float32 (``(C, X>>p,
+    Y>>p, Z>>p)`` at ``preview=p``), and adds the
     host-to-device bytes and the seconds of the host (unpack) and device
     (H2D, inverse kernel, D2H) stages to ``stats``.  ``prefetch=1`` runs
     bucket i+1's host stage behind bucket i's device inverse."""
@@ -123,20 +141,27 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
         dims, bucket_items = order[j]
         kind, payload, h2d = prepared
         t0 = time.perf_counter()
-        if kind == "sparse":
-            out = eng.decompress_shapebatch_sparse(*payload)
+        if kind == "preview":
+            arr, h2d = eng.preview_shapebatch(payload, cfg.preview)
+            out_dims = tuple(arr.shape[1:])
+            item = arr.__getitem__
         else:
-            out = eng.decompress_shapebatch(payload)
+            if kind == "sparse":
+                out = eng.decompress_shapebatch_sparse(*payload)
+            else:
+                out = eng.decompress_shapebatch(payload)
+            out_dims = dims
+            item = out.item_view
         stats["device_seconds"] += time.perf_counter() - t0
         stats["host_to_device_bytes"] += h2d
         for i, it in enumerate(bucket_items):
             if regen[it.level][it.box] is None:
-                regen[it.level][it.box] = np.zeros((ncomp,) + dims,
+                regen[it.level][it.box] = np.zeros((ncomp,) + out_dims,
                                                    dtype=np.float32)
-            regen[it.level][it.box][comp_pos[it.comp_idx]] = out.item_view(i)
+            regen[it.level][it.box][comp_pos[it.comp_idx]] = item(i)
         # the device stage fetched its result above, so the input buffer
         # can be recycled for a later bucket's unpack (BufferArena contract)
-        if arena is not None and kind == "dense":
+        if arena is not None and kind in ("dense", "preview"):
             arena.release(payload.data)
 
     if cfg.prefetch > 0 and len(order) > 1:
@@ -153,17 +178,24 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
     return regen
 
 
-def iter_decompressed_timesteps(cfg: common.Config, stats=None):
+def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
     """Generator over regenerated timesteps: yields
     ``(t, plotfile_name, regen, locations_t, dimensions_t, info, amrex)``
     one timestep at a time, holding only that timestep's boxes.  A
     ``stats`` dict, if given, accumulates ``host_to_device_bytes`` and
-    the ``unpack_seconds`` / ``device_seconds`` of the two stages.
+    the ``unpack_seconds`` / ``device_seconds`` of the two stages.  In a
+    multi-process run only the timesteps this process owns are yielded.
 
     Partial retrieval: ``cfg.min_time``/``cfg.max_time`` select timesteps
     by the same numeric-key rule as compression, ``cfg.components`` a
     subset of the archived components, ``cfg.levels_upto`` an
-    archive-level prefix.  Only the selected payloads are read."""
+    archive-level prefix.  Only the selected payloads are read.
+
+    Preview: ``cfg.preview = p`` yields the low band at ``1/2**p`` cells
+    per axis (the 2**p-cube block mean the Haar low-pass encodes), with
+    locations, dimensions and the domain shifted down by ``p``; for ``p <=
+    scales`` only the stored pyramid's corner crosses the host->device
+    link."""
     info = archive.read_runinfo(cfg.compressed_dir)
     full_levels = common.format_levels(info.min_level, info.max_level)
     num_times = len(info.files)
@@ -230,11 +262,44 @@ def iter_decompressed_timesteps(cfg: common.Config, stats=None):
                  "%d of %d components", len(sel_times), num_times, levels,
                  full_levels, len(comp_names), len(info.components))
 
+    # --- preview: low-band regeneration at 1/2**p ----------------------
+    preview = cfg.preview
+    if preview:
+        f = 1 << preview
+        base = (amrex.x_dim, amrex.y_dim, amrex.z_dim)
+        if any(d % f for d in base):
+            raise ValueError(
+                f"preview={preview} requires domain dims divisible by {f}; "
+                f"archive domain is {base}")
+        for t in sel_times:
+            for li in range(num_levels):
+                for b in range(counts[t][li]):
+                    loc = locations[t][li][b]
+                    dd = dimensions[t][li][b]
+                    if any(v % f for v in loc) or any(v % f for v in dd):
+                        raise ValueError(
+                            f"preview={preview} requires box locations and "
+                            f"dims divisible by {f}; timestep {t} level "
+                            f"{li} box {b} has loc={loc} dims={dd}")
+        # the same physical domain over a 2**p-coarser index space: cells
+        # grow 2**p per axis; geometry, times and steps are unchanged
+        amrex = archive.AMReXInfo(
+            amrex.geomcellinfo, amrex.ref_ratios, amrex.true_times,
+            amrex.level_steps, amrex.x_dim >> preview,
+            amrex.y_dim >> preview, amrex.z_dim >> preview)
+        log.info("Preview mode: regenerating the wavelet low band at "
+                 "1/%d resolution per axis", f)
+
     packer = engine.HostPacker(payload=meta.get("payload", "f32"),
                                codec=meta.get("codec", "xz"),
                                archive_format=meta.get("archive", "files"))
     eng = engine.CodecEngine(device=cfg.device,
-                             scales=meta.get("scales", 1))
+                             scales=meta.get("scales", 1), mesh=mesh,
+                             giant_box_bytes=cfg.giant_box_bytes)
+    # timesteps are independent outputs (one plotfile directory each), so
+    # each process of a multi-process run takes a contiguous slice
+    if mesh_lib.process_count() > 1:
+        sel_times = sel_times[mesh_lib.process_local_slice(len(sel_times))]
     arena = batching.BufferArena()   # same shape buckets recur every step
     if stats is None:
         stats = {}
@@ -252,11 +317,20 @@ def iter_decompressed_timesteps(cfg: common.Config, stats=None):
                                      num_levels, counts, dimensions, stats,
                                      arena=arena)
         name = os.path.join(cfg.out_dir, os.path.basename(info.files[t]))
-        yield (t, name, regen, locations[t][:num_levels],
-               dimensions[t][:num_levels], sel_info, amrex)
+        if preview:
+            locs_t = [[tuple(v >> preview for v in loc)
+                       for loc in locations[t][li]]
+                      for li in range(num_levels)]
+            dims_t = [[tuple(v >> preview for v in dd)
+                       for dd in dimensions[t][li]]
+                      for li in range(num_levels)]
+        else:
+            locs_t = locations[t][:num_levels]
+            dims_t = dimensions[t][:num_levels]
+        yield (t, name, regen, locs_t, dims_t, sel_info, amrex)
 
 
-def decompress_run(cfg: common.Config) -> dict:
+def decompress_run(cfg: common.Config, mesh=None) -> dict:
     engine.resolve_device(cfg.device)   # fail before writing any output
     info = archive.read_runinfo(cfg.compressed_dir)
     log.info("Decompressing data between timestep %s and %s, level %s and %s, "
@@ -276,7 +350,7 @@ def decompress_run(cfg: common.Config) -> dict:
         # t+1 decodes; the single worker keeps writes ordered
         pending = None
         for (t, name, regen, locs_t, dims_t, rinfo, amrex) in \
-                iter_decompressed_timesteps(cfg, stats=stats):
+                iter_decompressed_timesteps(cfg, mesh, stats=stats):
             num_levels = len(locs_t)   # the SELECTED level prefix
             log.info("%s", name)
             geom = amrex.geomcellinfo[t]

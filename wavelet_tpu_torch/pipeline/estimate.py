@@ -12,13 +12,15 @@ keep).  With ``fastestimate=1`` the sweep shares the forward transform —
 the threshold rule's data-dependent half (the signed absmax) is
 keep-independent, so each extra keep costs only the masking/metrics pass.
 
-The port's copy of ``wavelet_tpu/pipeline/estimate.py`` for one device
-(``cfg.device``): the scratch path compresses with
-``compress.compress_collected`` and decompresses each shape bucket with the
-engine's pack factor, so under ``WAVELET_TPU_LAYOUT=halves`` it runs the
-lane-packed kernels.  ``devicemetrics=1`` takes the RMSE from
+The port's copy of ``wavelet_tpu/pipeline/estimate.py`` (``cfg.device``,
+and ``mesh=`` as in the compress pipeline): the scratch path compresses
+with ``compress.compress_collected`` and decompresses each shape bucket
+with the engine's pack factor, so under ``WAVELET_TPU_LAYOUT=halves`` it
+runs the lane-packed kernels.  ``devicemetrics=1`` takes the RMSE from
 ``CodecEngine.rmse_batch`` (float32 on the device) instead of the host's
-double accumulation.
+double accumulation.  ``fastestimate=1`` stacks plain arrays, which cannot
+take the giant-box split, so a run with giant boxes takes the scratch
+path.  The estimate runs in one process.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from wavelet_tpu_torch.core import threshold as thr
 from wavelet_tpu_torch.io import archive, plotfile
 from wavelet_tpu_torch.pipeline import common, compress
 from wavelet_tpu_torch.runtime import batching, engine
+from wavelet_tpu_torch.runtime import mesh as mesh_lib
 
 log = logging.getLogger("wavelet_tpu_torch")
 
@@ -109,11 +112,12 @@ def _fast_codec_regen(run, cfg, eng, comp_pos, buckets, flats, t32s):
     return regen, total_bytes
 
 
-def _engine(cfg) -> engine.CodecEngine:
-    return engine.CodecEngine(device=cfg.device, scales=cfg.scales)
+def _engine(cfg, mesh) -> engine.CodecEngine:
+    return engine.CodecEngine(device=cfg.device, scales=cfg.scales,
+                              mesh=mesh, giant_box_bytes=cfg.giant_box_bytes)
 
 
-def _metrics_result(run, cfg, regen, comp_size, files, levels,
+def _metrics_result(run, cfg, mesh, regen, comp_size, files, levels,
                     keep: float, eng=None, raw_size=None) -> dict:
     """Per-component mean RMSE (unweighted over boxes, modes.cpp:269-291),
     adjusted loss, and size percentage (modes.cpp:294-324).
@@ -124,7 +128,7 @@ def _metrics_result(run, cfg, regen, comp_size, files, levels,
     lv = run.levels_data[0][0]
     if cfg.device_metrics:
         if eng is None:
-            eng = _engine(cfg)
+            eng = _engine(cfg, mesh)
         per_box = [eng.rmse_batch(a, p) for a, p in zip(lv.boxes, regen)]
     else:
         per_box = [metrics.rmse_per_box(a, p)
@@ -150,9 +154,9 @@ def _metrics_result(run, cfg, regen, comp_size, files, levels,
     return result
 
 
-def _fast_estimate(run, cfg, files, levels) -> dict:
+def _fast_estimate(run, cfg, mesh, files, levels) -> dict:
     """fastestimate=1: no scratch archive at all (metrics identical)."""
-    eng = _engine(cfg)
+    eng = _engine(cfg, mesh)
     _lv, comp_pos, buckets, stacked = _fast_buckets(run)
     # sweep-invariant: one raw-size walk and one engine for every value
     hdr = plotfile.read_header(files[0])
@@ -179,7 +183,7 @@ def _fast_estimate(run, cfg, files, levels) -> dict:
             log.info("Compression complete.")
             log.info("Decompression complete.")
             log.info("keep_fraction = %s (threshold %s):", frac, tval)
-            r = _metrics_result(run, cfg, regen, comp_size, files,
+            r = _metrics_result(run, cfg, mesh, regen, comp_size, files,
                                 levels, cfg.keep, eng=eng,
                                 raw_size=raw_size)
             r["keep_fraction"] = float(frac)
@@ -203,7 +207,7 @@ def _fast_estimate(run, cfg, files, levels) -> dict:
         log.info("Compression complete.")
         log.info("Decompression complete.")
         log.info("keep = %s:", keep)
-        sweep[repr(keep)] = _metrics_result(run, cfg, regen,
+        sweep[repr(keep)] = _metrics_result(run, cfg, mesh, regen,
                                             comp_size, files, levels, keep,
                                             eng=eng, raw_size=raw_size)
     if len(keeps) == 1:
@@ -211,7 +215,7 @@ def _fast_estimate(run, cfg, files, levels) -> dict:
     return {"keep_sweep": sweep}
 
 
-def _estimate_scratch(run, cfg, files, levels) -> dict:
+def _estimate_scratch(run, cfg, mesh, files, levels) -> dict:
     """Reference-shaped estimate: compress into a scratch dir, decompress,
     measure (modes.cpp:209-328)."""
     with tempfile.TemporaryDirectory() as scratch:
@@ -223,9 +227,10 @@ def _estimate_scratch(run, cfg, files, levels) -> dict:
             run, cfg.keep, scratch, packer=packer,
             threshold_mode=cfg.threshold_mode,
             keep_fraction=cfg.keep_fraction,
-            scales=cfg.scales, payload=cfg.payload, device=cfg.device)
+            scales=cfg.scales, payload=cfg.payload, device=cfg.device,
+            mesh=mesh, giant_box_bytes=cfg.giant_box_bytes)
         log.info("Compression complete.")
-        eng = _engine(cfg)
+        eng = _engine(cfg, mesh)
         lv = run.levels_data[0][0]
         buckets = {}
         for b in range(len(lv.boxes)):
@@ -236,6 +241,7 @@ def _estimate_scratch(run, cfg, files, levels) -> dict:
         comp_pos = {c: k for k, c in enumerate(run.comp_idxs)}
         regen = [np.zeros_like(box) for box in lv.boxes]
         for dims, items in buckets.items():
+            # giant shapes are not padded (they split within the box)
             batch = batching.empty_batch(items, dims,
                                          pack=eng.pack_factor(dims),
                                          pad_multiple=eng.pad_multiple_for(
@@ -248,7 +254,7 @@ def _estimate_scratch(run, cfg, files, levels) -> dict:
                 regen[it.box][comp_pos[it.comp_idx]] = out.item_view(i)
         log.info("Decompression complete.")
         comp_size = metrics.dir_size(scratch)
-        result = _metrics_result(run, cfg, regen, comp_size, files,
+        result = _metrics_result(run, cfg, mesh, regen, comp_size, files,
                                  levels, cfg.keep)
         if cfg.threshold_mode == "global":
             # same result schema as the fast path's global rows
@@ -258,18 +264,19 @@ def _estimate_scratch(run, cfg, files, levels) -> dict:
         return result
 
 
-def estimate_run(cfg: common.Config) -> dict:
+def estimate_run(cfg: common.Config, mesh=None) -> dict:
     """Estimate mode (modes.cpp:209-328): -> the per-component RMSE and
-    adjusted loss and the compressed size percentage, or a sweep of them."""
+    adjusted loss and the compressed size percentage, or a sweep of them.
+    ``mesh`` splits the batches over its entries, and giant boxes along
+    X."""
     engine.resolve_device(cfg.device)
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
+    if mesh_lib.process_count() > 1:
         # the reference's estimate is serial (modes.cpp:209-328): every
         # process would read and estimate the same timestep
-        raise ValueError("'-estimate' runs single-process; run it "
-                         "outside the process group")
+        raise ValueError("'-estimate' runs single-process; drop "
+                         "coordinator=/processes= for the estimate "
+                         "(compress/decompress are the multi-process "
+                         "modes)")
     files = common.format_files(cfg.data_dir, cfg.min_time, cfg.min_time)
     levels = [cfg.min_level]
 
@@ -293,7 +300,16 @@ def estimate_run(cfg: common.Config) -> dict:
         # fast path would otherwise die on `None * total` (TypeError)
         raise ValueError("global threshold mode requires keep_fraction")
     if cfg.fast_estimate:
-        return _fast_estimate(run, cfg, files, levels)
+        lv = run.levels_data[0][0]
+        gate = _engine(cfg, mesh)
+        giant_dims = {tuple(d) for d in lv.dimensions
+                      if gate.giant_ok(tuple(d))}
+        if giant_dims:
+            log.info("fastestimate: boxes %s exceed giantbox — using the "
+                     "scratch estimate path (it splits within the box)",
+                     sorted(giant_dims))
+        else:
+            return _fast_estimate(run, cfg, mesh, files, levels)
 
     def scratch_sweep(values, field):
         """One _estimate_scratch per value, substituted into ``field`` —
@@ -305,7 +321,7 @@ def estimate_run(cfg: common.Config) -> dict:
             c2 = dataclasses.replace(cfg, keep_sweep=None,
                                      keep_fraction_sweep=None,
                                      **{field: v})
-            sweep[repr(v)] = _estimate_scratch(run, c2, files, levels)
+            sweep[repr(v)] = _estimate_scratch(run, c2, mesh, files, levels)
         return sweep
 
     if fracs:
@@ -315,5 +331,5 @@ def estimate_run(cfg: common.Config) -> dict:
         return {"keep_fraction_sweep": sweep}
     if len(keeps) == 1:
         c2 = dataclasses.replace(cfg, keep=keeps[0], keep_sweep=None)
-        return _estimate_scratch(run, c2, files, levels)
+        return _estimate_scratch(run, c2, mesh, files, levels)
     return {"keep_sweep": scratch_sweep(keeps, "keep")}

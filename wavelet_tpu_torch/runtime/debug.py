@@ -1,19 +1,22 @@
-"""Phase timing for the pipelines' log lines.
+"""Phase timing for the pipelines' log lines, and the profiler switch.
 
-The port's own copy of :func:`phase_timer` from
+:func:`phase_timer` is the port's own copy of the one in
 ``wavelet_tpu/runtime/debug.py``, so that the port imports nothing of
-``wavelet_tpu``; that module's other helpers drive jax and are not copied.
+``wavelet_tpu``; :func:`maybe_profile` is its counterpart on
+``torch.profiler`` (CLI ``profile=DIR``).  That module's other helpers set
+jax options and have no counterpart here.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 
 log = logging.getLogger("wavelet_tpu_torch")
 
-__all__ = ["phase_timer"]
+__all__ = ["phase_timer", "maybe_profile"]
 
 
 class _Phase:
@@ -42,3 +45,29 @@ def phase_timer(name: str, nbytes: int | None = None,
     if ph.nbytes:
         text += " (%.3g GB/s)" % (ph.nbytes / 1e9 / max(ph.seconds, 1e-12))
     log.info("%s", text)
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: str | None):
+    """Profile the enclosed region into ``trace_dir`` if set, else no-op:
+    a ``torch.profiler`` trace of the CPU and (where there is a card) CUDA
+    activities, written as a Chrome trace ``trace_p<rank>.json`` (open it
+    in Perfetto or ``chrome://tracing``)."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir,
+                        f"trace_p{mesh_lib.process_index()}.json")
+    log.info("Capturing torch.profiler trace to %s", path)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(path)

@@ -1,12 +1,22 @@
 """The device codec engine on PyTorch: compress/decompress steps over
 shape-bucketed batches, and the parallel host packer.
 
-Counterpart of ``wavelet_tpu.runtime.engine`` for one device: box
-thresholds and the global-threshold histogram pass, on single-scale
-transforms or ``scales``-deep pyramids, with dense or sparse transfer.
-Coefficients use the ``halves`` layout (the reference's order, the pyramid
-in logical order).  Branches outside the port raise
-``NotImplementedError``; none falls back to another path.
+Counterpart of ``wavelet_tpu.runtime.engine``: box thresholds and the
+global-threshold histogram pass, on single-scale transforms or
+``scales``-deep pyramids, with dense or sparse transfer, the low-band
+preview, on one device or over a mesh (``runtime/mesh``).  Coefficients
+use the ``halves`` layout (the reference's order, the pyramid in logical
+order).  Branches outside the port raise ``NotImplementedError``; none
+falls back to another path.
+
+With ``mesh=`` every batch whose row count the mesh divides is split into
+``mesh.size`` contiguous row chunks, each run by its kernel on its own
+mesh entry (the JAX engine's ``shard_map`` over the ``data`` axis); other
+batches run whole on the first entry, as the JAX package runs them
+unsharded.  A giant box (``giant_ok``: a mesh of two or more entries, at
+least ``giant_box_bytes``) is instead split along X over the mesh
+(``runtime/distributed``).  Results come back in item order either way,
+so archives do not depend on the mesh.
 
 Two kernel routes, the JAX package's A/B switch ``WAVELET_TPU_LAYOUT``
 (or ``CodecEngine(layout=)``):
@@ -55,9 +65,12 @@ import numpy as np
 import torch
 
 from wavelet_tpu_torch import native
-from wavelet_tpu_torch.core import rle, threshold
+from wavelet_tpu_torch.core import haar, rle, threshold
 from wavelet_tpu_torch.io import archive, bundle
+from wavelet_tpu_torch.runtime import distributed
+from wavelet_tpu_torch.runtime import mesh as mesh_lib
 from wavelet_tpu_torch.runtime.batching import ShapeBatch
+from wavelet_tpu_torch.runtime.mesh import resolve_device
 from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
                                        packed_cuda, pyramid_cuda)
 
@@ -65,22 +78,6 @@ log = logging.getLogger("wavelet_tpu_torch")
 
 __all__ = ["CodecEngine", "HostPacker", "SparseCoeffs",
            "resolve_signed_absmax", "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    """``"cuda"`` / ``"cpu"`` / a ``torch.device`` -> a usable device.
-    ``cuda`` without a CUDA runtime raises: the port never runs a
-    CUDA-requested job on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device=cuda requested but "
-                               "torch.cuda.is_available() is false")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cuda|cpu)")
-    return dev
 
 
 def resolve_signed_absmax(maxv: np.ndarray, minv: np.ndarray,
@@ -115,7 +112,8 @@ class SparseCoeffs:
     idxs: np.ndarray          # int32 [N_pad, cap]
     vals: np.ndarray          # f32  [N_pad, cap]
     cap: int
-    _flat_dev: object = None  # dense [N, m] tensor for overflow fallback
+    _flat_dev: object = None  # dense [N, m] tensor (or _ChunkRows) for
+                              # the overflow fallback
     _flat_np: object = None   # bulk dense fallback, fetched lazily once
 
     def transfer_bytes(self) -> int:
@@ -152,23 +150,56 @@ class SparseCoeffs:
         return idx.astype(np.int32), row[idx]
 
 
+class _ChunkRows:
+    """Row chunks ``[n_k, m]`` on their mesh entries, read as one
+    ``[N, m]`` array: the dense fallback rows of a mesh batch's
+    :class:`SparseCoeffs` (``shape``, ``[i]`` and ``cpu()`` as a tensor)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+        self.shape = (sum(int(p.shape[0]) for p in parts),
+                      int(parts[0].shape[1]))
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        for p in self.parts:
+            if i < p.shape[0]:
+                return p[i]
+            i -= int(p.shape[0])
+        raise IndexError(i)
+
+    def cpu(self) -> torch.Tensor:
+        return torch.cat([p.cpu() for p in self.parts])
+
+
 class CodecEngine:
-    """Runs the device side of the codec over ShapeBatches on ``device``.
+    """Runs the device side of the codec over ShapeBatches on ``device``,
+    or over ``mesh`` (a :class:`~wavelet_tpu_torch.runtime.mesh.
+    DeviceMesh` of ``device``'s type; its first entry then stands for
+    ``device``).
 
     On a CUDA device the transforms and the compaction are the
     hand-written kernels of ``kernels/haar_cuda.py``,
     ``kernels/pyramid_cuda.py``, ``kernels/packed_cuda.py`` and
     ``kernels/compact_cuda.py``; on the CPU, their plain PyTorch versions
     — bitwise the same results.  ``layout=None`` reads
-    ``WAVELET_TPU_LAYOUT`` (``auto`` | ``interleaved`` | ``halves``)."""
+    ``WAVELET_TPU_LAYOUT`` (``auto`` | ``interleaved`` | ``halves``).
+    ``giant_box_bytes=None`` reads ``WAVELET_TPU_GIANTBOX`` (default 1
+    GiB; CLI ``giantbox=``)."""
 
     # one box must fit the JAX halves kernels' VMEM block: the bound of the
     # halves route's packed shapes, kept so both packages pack alike
     _PALLAS_MAX_BLOCK_BYTES = 4 << 20
 
     def __init__(self, device="cuda", scales: int = 1,
-                 layout: str | None = None):
+                 layout: str | None = None, mesh=None,
+                 giant_box_bytes: int | None = None):
         self.device = resolve_device(device)
+        if mesh is not None:
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"device={device} but the mesh holds "
+                                 f"{[str(d) for d in mesh.devices]}")
+            self.device = mesh.devices[0]
+        self.mesh = mesh
         self.scales = int(scales)
         self._sparse_cap_hint: dict = {}   # shape -> adaptive cap fraction
         if layout is None:
@@ -176,6 +207,10 @@ class CodecEngine:
         if layout not in ("auto", "interleaved", "halves"):
             raise ValueError(f"unknown kernel layout {layout!r}")
         self.layout = layout
+        if giant_box_bytes is None:
+            giant_box_bytes = int(os.environ.get("WAVELET_TPU_GIANTBOX",
+                                                 1 << 30))
+        self.giant_box_bytes = int(giant_box_bytes)
 
     def eff_scales(self, dims) -> int:
         """Deepest pyramid this box shape supports, capped at the requested
@@ -196,14 +231,36 @@ class CodecEngine:
         return (self.layout == "halves" and self.scales == 1
                 and int(np.prod(dims)) * 4 <= self._PALLAS_MAX_BLOCK_BYTES)
 
+    def giant_ok(self, dims) -> bool:
+        """Whether boxes of this shape are split along X over the mesh
+        (``runtime/distributed``): a mesh of at least two entries, a box
+        of at least ``giant_box_bytes``, every dim divisible by
+        ``2**max(1, eff)`` and X by ``mesh.size * 2**eff``, so each slab
+        holds whole pairs at every scale (the JAX package's gate)."""
+        m = self.mesh
+        if m is None or m.size < 2:
+            return False
+        if int(np.prod(dims)) * 4 < self.giant_box_bytes:
+            return False
+        eff = self.eff_scales(dims)
+        q = 1 << max(1, eff)
+        return (all(int(d) % q == 0 for d in dims)
+                and int(dims[0]) % (m.size * (1 << eff)) == 0)
+
     def pack_factor(self, dims) -> int:
-        """Boxes per batch row (``batching.plan_batches``' ``pack_fn``)."""
-        if self._halves_ok(dims):
+        """Boxes per batch row (``batching.plan_batches``' ``pack_fn``);
+        giant boxes are split within the box, one per row."""
+        if self._halves_ok(dims) and not self.giant_ok(dims):
             return packed_cuda.lane_pack_factor(dims)
         return 1
 
     def pad_multiple_for(self, dims) -> int:
-        return 1
+        """Batch padding quantum (``plan_batches``' ``pad_fn``): the mesh
+        size, so every row chunk is whole; 1 for giant shapes, which must
+        not gain phantom giant boxes."""
+        if self.mesh is None or self.giant_ok(dims):
+            return 1
+        return self.mesh.size
 
     # transfer=auto breakevens, one per link direction.  At a kept
     # fraction f the sparse stream is about 2f of the dense bytes (8 B
@@ -337,7 +394,9 @@ class CodecEngine:
         the direction this pipeline uses: ``d2h`` for compress, ``h2d``
         for decompress) is slower than that direction's device-stage
         breakeven.  On ``device=cpu`` there is no link to measure, so
-        ``auto`` is dense there unless a link value was injected."""
+        ``auto`` is dense there unless a link value was injected.  Giant
+        boxes always take dense: they are split within the box and their
+        coefficients come back whole, so pairs could save nothing."""
         if transfer == "auto":
             injected = (self._measured_link_gbps is not None
                         and self._measured_link_at <= 0)
@@ -347,15 +406,40 @@ class CodecEngine:
             transfer = ("sparse"
                         if bw < self._AUTO_SPARSE_BELOW_GBPS[direction]
                         else "dense")
+        if transfer == "sparse" and self.giant_ok(dims):
+            return "dense"
         return transfer
 
-    def _put(self, data: np.ndarray) -> torch.Tensor:
+    def _put(self, data: np.ndarray, device=None) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(data, np.float32)).to(
-            self.device)
+            self.device if device is None else device)
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
+
+    def _row_chunks(self, n: int):
+        """-> ``[(device, lo, hi)]``: the mesh's contiguous row chunks of an
+        ``n``-row batch, or the whole batch on the first device when there
+        is no mesh or the mesh does not divide ``n``."""
+        m = self.mesh
+        if m is None or m.size == 1 or n % m.size:
+            return [(self.device, 0, n)]
+        r = n // m.size
+        return [(d, k * r, (k + 1) * r) for k, d in enumerate(m.devices)]
+
+    def _map(self, fn, data: np.ndarray) -> list:
+        """``fn`` on each row chunk of ``data``, put on the chunk's device;
+        every chunk is launched before any result is read."""
+        return [fn(self._put(data[lo:hi], dev))
+                for dev, lo, hi in self._row_chunks(data.shape[0])]
+
+    @classmethod
+    def _cat(cls, parts) -> np.ndarray:
+        """Device tensors of consecutive row chunks -> one host array."""
+        if len(parts) == 1:
+            return cls._host(parts[0])
+        return np.concatenate([cls._host(p) for p in parts])
 
     def _forward_dev(self, x: torch.Tensor, dims, pack: int = 1):
         """Device forward of a batch array: -> (coeffs, max, min) on the
@@ -367,14 +451,20 @@ class CodecEngine:
             return pyramid_cuda.pyramid_forward(x, eff)
         return haar_cuda.fused_forward(x)
 
+    def _forward(self, data: np.ndarray, dims, pack: int = 1):
+        """-> (per-chunk coefficient tensors, max, min on the host)."""
+        parts = self._map(lambda x: self._forward_dev(x, dims, pack), data)
+        return ([c for c, _, _ in parts], self._cat([p[1] for p in parts]),
+                self._cat([p[2] for p in parts]))
+
     def forward_signed_batch(self, data: np.ndarray):
         """-> (coeffs f32 [N, XYZ], signed absmax f32 [N]) of an unpacked
         ``[N, X, Y, Z]`` batch: the transform and the keep-independent half
         of the threshold rule (a keep sweep derives each keep's thresholds
         from ``signed``)."""
-        c, maxv, minv = self._forward_dev(self._put(data), data.shape[1:])
-        flat = self._host(c).reshape(c.shape[0], -1)
-        signed = resolve_signed_absmax(self._host(maxv), self._host(minv),
+        cs, maxv, minv = self._forward(data, data.shape[1:])
+        flat = self._cat(cs).reshape(data.shape[0], -1)
+        signed = resolve_signed_absmax(maxv, minv,
                                        row_getter=flat.__getitem__)
         return flat, signed
 
@@ -388,15 +478,35 @@ class CodecEngine:
         """-> (coefficient ShapeBatch of the same geometry, t32 f32 per
         item incl. padding slots)."""
         self._check_batch(batch)
-        c, maxv, minv = self._forward_dev(self._put(batch.data), batch.shape,
-                                          batch.pack)
-        cb = dataclasses.replace(batch, data=self._host(c))
+        if self.giant_ok(batch.shape):
+            return self._compress_giant(batch, keep)
+        cs, maxv, minv = self._forward(batch.data, batch.shape, batch.pack)
+        cb = dataclasses.replace(batch, data=self._cat(cs))
         # a tie resolves against item i's logical coefficients, wherever
         # the batch geometry puts them
         signed = resolve_signed_absmax(
-            self._host(maxv), self._host(minv),
-            row_getter=lambda i: cb.item_view(i).reshape(-1))
+            maxv, minv, row_getter=lambda i: cb.item_view(i).reshape(-1))
         return cb, threshold.exact_threshold32(signed, keep)
+
+    def _compress_giant(self, batch: ShapeBatch, keep: float):
+        """Giant-box compress: each item is one box split along X over the
+        mesh (``distributed.sharded_box_forward``); the coefficients, ties
+        and thresholds are the unsplit box's, so the archive is too."""
+        eff = self.eff_scales(batch.shape)
+        n = batch.data.shape[0]
+        log.info("Giant box path: %d box(es) of %s sharding X over %d "
+                 "devices (zero collectives)", n, batch.shape,
+                 self.mesh.size)
+        coeffs = np.empty_like(batch.data)
+        maxs = np.empty(n, np.float32)
+        mins = np.empty(n, np.float32)
+        for i in range(n):
+            coeffs[i], maxs[i], mins[i] = distributed.sharded_box_forward(
+                self.mesh, batch.data[i], eff)
+        signed = resolve_signed_absmax(
+            maxs, mins, row_getter=lambda i: coeffs[i].reshape(-1))
+        return (dataclasses.replace(batch, data=coeffs),
+                threshold.exact_threshold32(signed, keep))
 
     def compress_shapebatch_sparse(self, batch: ShapeBatch, keep: float,
                                    cap_fraction: float | None = None):
@@ -417,25 +527,35 @@ class CodecEngine:
         overflow fallbacks, never correctness).
         """
         self._check_batch(batch)
+        dims = batch.shape
+        if self.giant_ok(dims):
+            # transfer_mode routes giant shapes dense; the per-device
+            # kernels below would run a whole giant box on one device
+            raise ValueError(
+                f"sparse transfer does not take giant shapes {dims} — "
+                "transfer_mode routes them dense (sharded giant path)")
         adaptive = cap_fraction is None
         if adaptive:
             cap_fraction = self._sparse_cap_hint.get(batch.shape, 0.25)
-        dims = batch.shape
         m = int(np.prod(dims))
-        c, maxv, minv = self._forward_dev(self._put(batch.data), dims,
-                                          batch.pack)
-        # item-major logical rows [N, X*Y*Z], as the JAX package's
-        # _unpack_packed_coeffs makes them from a packed batch
-        flat = (packed_cuda.unpack(c, batch.pack) if batch.pack > 1
-                else c).reshape(-1, m)
+        cs, maxv, minv = self._forward(batch.data, dims, batch.pack)
+        # item-major logical rows [N, X*Y*Z] per chunk, as the JAX
+        # package's _unpack_packed_coeffs makes them from a packed batch
+        flats = [(packed_cuda.unpack(c, batch.pack) if batch.pack > 1
+                  else c).reshape(-1, m) for c in cs]
+        flat = flats[0] if len(flats) == 1 else _ChunkRows(flats)
         signed = resolve_signed_absmax(
-            self._host(maxv), self._host(minv),
-            row_getter=lambda i: self._host(flat[i]))
+            maxv, minv, row_getter=lambda i: self._host(flat[i]))
         t32 = threshold.exact_threshold32(signed, keep)
         # cap rounded UP to a multiple of 128 slots
         cap = int(min(m, max(128, -(-int(m * cap_fraction) // 128) * 128)))
-        counts, idxs, vals = compact_cuda.compact(flat, self._put(t32), cap)
-        counts = self._host(counts)
+        parts, lo = [], 0
+        for f in flats:
+            hi = lo + int(f.shape[0])
+            parts.append(compact_cuda.compact(
+                f, self._put(t32[lo:hi], f.device), cap))
+            lo = hi
+        counts = self._cat([c for c, _, _ in parts])
         if adaptive and batch.n_valid:
             observed = float(counts[: batch.n_valid].max()) / m
             self._sparse_cap_hint[batch.shape] = float(
@@ -466,24 +586,34 @@ class CodecEngine:
                                 idxs=empty.astype(np.int32),
                                 vals=empty.astype(np.float32),
                                 cap=0, _flat_dev=flat,
-                                _flat_np=self._host(flat)), t32
+                                _flat_np=self._host(flat.cpu())), t32
         if trim < cap:
-            idxs, vals = idxs[:, :trim], vals[:, :trim]
             cap = trim
         return SparseCoeffs(shape=dims, items=batch.items,
                             counts=counts,
-                            idxs=self._host(idxs), vals=self._host(vals),
+                            idxs=self._cat([i[:, :cap] for _, i, _ in parts]),
+                            vals=self._cat([v[:, :cap] for _, _, v in parts]),
                             cap=cap, _flat_dev=flat), t32
 
-    def _forward_hist(self, data: np.ndarray, pack: int = 1):
-        """-> (coeffs on the device, in the batch's geometry, int64
-        histogram of the whole batch on the host)."""
+    def _forward_hist(self, data: np.ndarray, pack: int = 1,
+                      fetch_coeffs: bool = True):
+        """-> (coeffs on the host in the batch's geometry, or None; int64
+        histogram of the whole batch, the sum of its chunks')."""
         if pack > 1:
-            c, hist = packed_cuda.packed_forward_hist(self._put(data), pack)
+            def fwd(x):
+                return packed_cuda.packed_forward_hist(x, pack)
         else:
             eff = max(1, self.eff_scales(data.shape[1:]))
-            c, hist = pyramid_cuda.forward_hist(self._put(data), eff)
-        return c, self._host(hist)
+
+            def fwd(x):
+                return pyramid_cuda.forward_hist(x, eff)
+        parts = self._map(fwd, data)
+        hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
+        for _, h in parts:
+            hist += self._host(h)
+        if not fetch_coeffs:
+            return None, hist
+        return self._cat([c for c, _ in parts]), hist
 
     def forward_hist_shapebatch(self, batch: ShapeBatch,
                                 fetch_coeffs: bool = True):
@@ -491,7 +621,9 @@ class CodecEngine:
         histogram of the real items).  ``fetch_coeffs=False`` returns
         ``(None, hist)`` and moves no coefficient to the host."""
         self._check_batch(batch)
-        c, hist = self._forward_hist(batch.data, batch.pack)
+        if self.giant_ok(batch.shape):
+            return self._forward_hist_giant(batch, fetch_coeffs)
+        c, hist = self._forward_hist(batch.data, batch.pack, fetch_coeffs)
         # padding slots are zero boxes: take their coefficients out of the
         # zero bin so the quantile counts real coefficients only (items,
         # not rows: a packed row holds P items)
@@ -500,33 +632,112 @@ class CodecEngine:
         hist[0] -= n_pad * m
         if not fetch_coeffs:
             return None, hist
-        return dataclasses.replace(batch, data=self._host(c)), hist
+        return dataclasses.replace(batch, data=c), hist
+
+    def _forward_hist_giant(self, batch: ShapeBatch, fetch_coeffs: bool):
+        """The giant branch of :meth:`forward_hist_shapebatch`: K6 per
+        X-slab, the box's histogram the sum of its slabs'.  Giant batches
+        are never padded."""
+        eff = self.eff_scales(batch.shape)
+        # phase-neutral wording: this runs in the pass-1 histogram stream
+        # and in pass-2 re-reads of uncached timesteps
+        log.info("Giant box path (global threshold): %d box(es) of %s "
+                 "sharding X over %d devices", batch.data.shape[0],
+                 batch.shape, self.mesh.size)
+        coeffs = np.empty_like(batch.data) if fetch_coeffs else None
+        hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
+        for i in range(batch.data.shape[0]):
+            c, h = distributed.sharded_box_forward_hist(
+                self.mesh, batch.data[i], eff, fetch_coeffs)
+            hist += h
+            if fetch_coeffs:
+                coeffs[i] = c
+        if not fetch_coeffs:
+            return None, hist
+        return dataclasses.replace(batch, data=coeffs), hist
 
     def forward_hist_batch(self, data: np.ndarray, n_pad_rows: int = 0):
         """-> (flat [N, XYZ], int64 histogram); ``n_pad_rows`` all-zero
         padding rows are taken out of the zero bin."""
-        c, hist = self._forward_hist(np.asarray(data, np.float32))
-        flat = self._host(c).reshape(c.shape[0], -1)
+        data = np.asarray(data, np.float32)
+        c, hist = self._forward_hist(data)
+        flat = c.reshape(data.shape[0], -1)
         hist[0] -= n_pad_rows * flat.shape[1]
         return flat, hist
 
-    def _inverse(self, blocks: np.ndarray, pack: int = 1) -> np.ndarray:
+    def _inverse_dev(self, x: torch.Tensor, scales: int,
+                     pack: int = 1) -> torch.Tensor:
+        """Device inverse of ``scales`` pyramid levels (K4, K2 or K7)."""
         if pack > 1:
-            return self._host(packed_cuda.packed_inverse(self._put(blocks),
-                                                         pack))
+            return packed_cuda.packed_inverse(x, pack)
+        if scales > 1:
+            return pyramid_cuda.pyramid_inverse(x, scales)
+        return haar_cuda.fused_inverse(x)
+
+    def _inverse(self, blocks: np.ndarray, pack: int = 1) -> np.ndarray:
         eff = self.eff_scales(blocks.shape[1:])
-        if eff > 1:
-            out = pyramid_cuda.pyramid_inverse(self._put(blocks), eff)
-        else:
-            out = haar_cuda.fused_inverse(self._put(blocks))
-        return self._host(out)
+        return self._cat(self._map(
+            lambda x: self._inverse_dev(x, eff, pack), blocks))
 
     def decompress_shapebatch(self, coeff_batch: ShapeBatch) -> ShapeBatch:
         """Coefficients -> reconstructed boxes, same geometry."""
         self._check_batch(coeff_batch)
+        if self.giant_ok(coeff_batch.shape):
+            return self._decompress_giant(coeff_batch)
         return dataclasses.replace(
             coeff_batch, data=self._inverse(coeff_batch.data,
                                             coeff_batch.pack))
+
+    def _decompress_giant(self, coeff_batch: ShapeBatch) -> ShapeBatch:
+        """Inverse of :meth:`_compress_giant`: per box, the pyramid split
+        into X-slab pyramids, each inverted on its mesh entry."""
+        eff = self.eff_scales(coeff_batch.shape)
+        out = np.empty_like(coeff_batch.data)
+        for i in range(coeff_batch.data.shape[0]):
+            out[i] = distributed.sharded_box_inverse(
+                self.mesh, coeff_batch.data[i], eff)
+        return dataclasses.replace(coeff_batch, data=out)
+
+    def preview_shapebatch(self, batch: ShapeBatch, depth: int):
+        """Low-band (LLL) preview at 1/2**depth resolution per axis.
+
+        ``batch`` holds logical-order coefficient rows (halves, pack=1, as
+        :meth:`HostPacker.unpack_into` fills them).  Returns ``(array [N,
+        X>>depth, Y>>depth, Z>>depth], h2d_bytes)``.
+
+        When ``depth <= eff_scales`` the preview is the stored pyramid's
+        corner plus the remaining ``eff - depth`` inverse scales (K2 for
+        one, K7 for more): only the corner (8**-depth of the coefficients)
+        crosses the host->device link, and at ``depth == eff`` the device
+        does no work.  Deeper previews invert fully (K2/K7) and take
+        ``haar.haar3d_lowpass`` on the device."""
+        dims = tuple(int(d) for d in batch.shape)
+        if any(d % (1 << depth) for d in dims):
+            raise ValueError(
+                f"preview={depth} requires box dims divisible by "
+                f"{1 << depth}; got {dims}")
+        s_box = self.eff_scales(dims)
+        if depth > s_box and self.giant_ok(dims):
+            # a deeper-than-stored preview reconstructs the FULL box on
+            # one device before re-lowpassing — exactly what a giant box
+            # cannot do; the corner path (depth <= scales) stays fine
+            # since only 8**-depth of the coefficients reach the device
+            raise ValueError(
+                f"preview={depth} on a giant box {dims} would "
+                f"reconstruct the whole box on one device; use preview "
+                f"<= scales ({s_box}) for giant archives")
+        cx, cy, cz = (d >> depth for d in dims)
+        if depth <= s_box:
+            corner = np.ascontiguousarray(batch.data[:, :cx, :cy, :cz])
+            rem = s_box - depth
+            if rem == 0:
+                return corner, 0
+            return self._cat(self._map(
+                lambda x: self._inverse_dev(x, rem), corner)), corner.nbytes
+        return self._cat(self._map(
+            lambda x: haar.haar3d_lowpass(self._inverse_dev(x, s_box),
+                                          depth),
+            batch.data)), batch.data.nbytes
 
     def rmse_batch(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
         """Per-item RMSE [N] of ``a`` against ``b`` (float32 on the device):
@@ -573,20 +784,34 @@ class CodecEngine:
         :meth:`HostPacker.unpack_sparse` pads them: padding slots carry
         positions >= X*Y*Z.  Only the pairs cross the host->device link.
         The scatter (:meth:`scatter_rows`) is plain torch, as the JAX
-        package's is a jnp scatter outside any kernel.  The output is
-        bitwise the dense path's (same coefficients, same inverse
-        kernel)."""
+        package's is a jnp scatter outside any kernel.  Under a mesh the
+        pair rows pad to a mesh multiple and each chunk scatters and
+        inverts on its entry.  The output is bitwise the dense path's
+        (same coefficients, same inverse kernel)."""
         self._check_batch(batch)
         dims = tuple(int(d) for d in batch.shape)
-        idx_t = torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(
-            self.device)
-        rows = self.scatter_rows(idx_t, self._put(vals), dims)
+        m = int(np.prod(dims))
+        if self.giant_ok(dims):
+            # mirror of the compress-side guard
+            raise ValueError(
+                f"sparse transfer does not take giant shapes {dims} — "
+                "transfer_mode routes them dense (sharded giant path)")
+        pad = self.mesh.size if self.mesh is not None else 1
+        n_pad = (-idx.shape[0]) % pad
+        if n_pad:
+            cap = idx.shape[1]
+            pad_row = (m + np.arange(cap, dtype=idx.dtype))[None]
+            idx = np.concatenate([idx, np.repeat(pad_row, n_pad, axis=0)])
+            vals = np.concatenate(
+                [vals, np.zeros((n_pad, vals.shape[1]), vals.dtype)])
+        idx = np.ascontiguousarray(idx, np.int32)
         eff = self.eff_scales(dims)
-        if eff > 1:
-            out = pyramid_cuda.pyramid_inverse(rows, eff)
-        else:
-            out = haar_cuda.fused_inverse(rows)
-        return ShapeBatch(shape=dims, data=self._host(out),
+        outs = []
+        for dev, lo, hi in self._row_chunks(idx.shape[0]):
+            rows = self.scatter_rows(torch.from_numpy(idx[lo:hi]).to(dev),
+                                     self._put(vals[lo:hi], dev), dims)
+            outs.append(self._inverse_dev(rows, eff))
+        return ShapeBatch(shape=dims, data=self._cat(outs),
                           items=batch.items, n_valid=batch.n_valid)
 
     def decompress_batch(self, flat: np.ndarray, dims) -> np.ndarray:
@@ -660,7 +885,7 @@ class HostPacker:
         key = (dir_, int(t))
         w = self._writers.get(key)
         if w is None:
-            proc = 0     # one process: multi-process runs are not ported
+            proc = mesh_lib.process_index()
             gen = 0
             while True:
                 path = os.path.join(dir_, bundle.bundle_name(t, proc, gen))
