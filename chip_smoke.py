@@ -1090,11 +1090,14 @@ def _two_entry_mesh():
 
 
 def _api_run(data_dir: str, name: str, steps, mesh, c_opts: dict,
-             d_opts=None, components=COMPONENTS, max_level: int = 1) -> dict:
-    """``wavelet_tpu_torch.compress`` then ``decompress`` on the card over
-    ``mesh``: -> wall seconds, pipeline stats, launch counts and the
-    archive and plotfile trees."""
+             d_opts=None, components=COMPONENTS, max_level: int = 1,
+             device: str | None = None) -> dict:
+    """``wavelet_tpu_torch.compress`` then ``decompress`` on ``device``
+    (``DEV`` by default) over ``mesh``: -> wall seconds, pipeline stats,
+    launch counts and the archive and plotfile trees."""
     import wavelet_tpu_torch
+
+    device = device or DEV
 
     comp = os.path.join(WORK, f"{name}_arch") + os.sep
     out = os.path.join(WORK, f"{name}_out") + os.sep
@@ -1103,9 +1106,9 @@ def _api_run(data_dir: str, name: str, steps, mesh, c_opts: dict,
     cs = wavelet_tpu_torch.compress(
         data_dir, comp, min_time=steps[0], max_time=steps[-1],
         components=list(components), min_level=0, max_level=max_level,
-        device=DEV, mesh=mesh, **c_opts)
+        device=device, mesh=mesh, **c_opts)
     t1 = time.perf_counter()
-    ds = wavelet_tpu_torch.decompress(comp, out, device=DEV, mesh=mesh,
+    ds = wavelet_tpu_torch.decompress(comp, out, device=device, mesh=mesh,
                                       **(d_opts or {}))
     return {"compress_s": t1 - t0, "decompress_s": time.perf_counter() - t1,
             "device_to_host_bytes": cs["device_to_host_bytes"],
@@ -1133,8 +1136,9 @@ def run_mesh(data_dir: str) -> dict:
     two-entry mesh: every batch splits into two row chunks, each run by
     its kernel on its entry.  (a)'s payloads and plotfiles must be (a)'s;
     (c)'s archive and plotfiles those of the same run without a mesh (a
-    one-timestep histogram gives its own threshold); every kernel of the
-    path launches once per chunk, twice per unsplit launch."""
+    one-timestep histogram gives its own threshold), on the card and on
+    the CPU (the plain versions); every kernel of the path launches once
+    per chunk, twice per unsplit launch."""
     mesh = _two_entry_mesh()
     steps = TIMESTEPS[:1]
     n_buckets = _n_buckets(data_dir, steps)
@@ -1151,14 +1155,19 @@ def run_mesh(data_dir: str) -> dict:
         raise AssertionError("(i, a) plotfiles differ from (a)'s")
     out["a"] = {**_summary(a), "payloads_equal_to_a": len(payloads)}
     c_opts = {"threshold_mode": "global", "keep_fraction": 0.02, "scales": 2}
+    cpu = _api_run(data_dir, "i_c_cpu", steps, None, c_opts, device="cpu")
+    _expect_launches("i, c, cpu", cpu["launches"], {})
     one = _api_run(data_dir, "i_c_one", steps, None, c_opts)
     c = _api_run(data_dir, "i_c", steps, mesh, c_opts)
     _expect_launches("i, c", c["launches"],
                      {k: 2 * n for k, n in one["launches"].items()})
-    if c["arch"] != one["arch"] or c["out"] != one["out"]:
-        raise AssertionError("(i, c) archive or plotfiles differ from the "
-                             "run without a mesh")
+    for which, r in (("without a mesh", one), ("over the mesh", c)):
+        if r["arch"] != cpu["arch"] or r["out"] != cpu["out"] \
+                or not cpu["arch"]:
+            raise AssertionError(f"(i, c) archive or plotfiles {which} "
+                                 "differ from the device=cpu run")
     out["c"], out["c_no_mesh"] = _summary(c), _summary(one)
+    out["c_cpu"] = _summary(cpu)
     return out
 
 
@@ -1206,10 +1215,12 @@ def run_giant() -> dict:
     """(j): one GIANT_N^3 box over the two-entry mesh with
     ``giantbox=GIANT_BYTES`` at scales 1 and 2 (``codec=raw``: one item is
     one single-threaded xz stream): the archive and plotfiles must be the
-    same run's without a mesh, the giant path must run (its log line), and
-    the slab kernels launch twice, once per X-slab.  Then ``preview=2`` of
-    the two-scale archive takes the stored corner alone: no launch, no
-    link bytes."""
+    same run's without a mesh, on the card and with device=cpu (the plain
+    versions of the slab kernels, on the whole box), the giant path must
+    run (its log line), and the slab kernels launch twice, once per
+    X-slab.  Then ``preview=2`` of the two-scale archive takes the stored
+    corner alone: no launch, no link bytes, the same plotfiles on the
+    card, over the mesh and on the CPU."""
     from wavelet_tpu_torch.runtime import engine
 
     data_dir = os.path.join(WORK, "giant_data")
@@ -1224,35 +1235,41 @@ def run_giant() -> dict:
                               giant_box_bytes=GIANT_BYTES).giant_ok(dims):
         raise AssertionError(f"(j) {dims} is not giant at {GIANT_BYTES}")
     giant = {"giant_box_bytes": GIANT_BYTES}
+    # (name, mesh, giant options, device, slab launches of each kernel)
+    variants = (("cpu", None, {}, "cpu", 0), ("one", None, {}, DEV, 1),
+                ("mesh", mesh, giant, DEV, 2))
     for scales in (1, 2):
         runs = {}
-        for which, m, opts in (("one", None, {}), ("mesh", mesh, giant)):
+        for which, m, opts, dev, n in variants:
             with _LogLines() as lines:
                 r = _api_run(data_dir, f"j{scales}_{which}", [GIANT_STEP], m,
                              {"keep": KEEP, "scales": scales, "codec": "raw",
-                              **opts}, opts, ["density"], 0)
+                              **opts}, opts, ["density"], 0, dev)
             r["giant_path"] = sum("Giant box path" in s for s in lines)
-            n = 2 if m is not None else 1
             _expect_launches(f"j, scales={scales}, {which}", r["launches"],
-                             {FORWARD[scales]: n, INVERSE[scales]: n})
+                             {FORWARD[scales]: n, INVERSE[scales]: n}
+                             if n else {})
             if (r["giant_path"] > 0) != (m is not None):
                 raise AssertionError(f"(j, scales={scales}, {which}) giant "
                                      f"path logged {r['giant_path']} times")
             runs[which] = r
-        if runs["mesh"]["arch"] != runs["one"]["arch"] or \
-                runs["mesh"]["out"] != runs["one"]["out"]:
-            raise AssertionError(f"(j, scales={scales}) archive or "
-                                 "plotfiles differ from the unsplit run")
+        for which in ("one", "mesh"):
+            if runs[which]["arch"] != runs["cpu"]["arch"] or \
+                    runs[which]["out"] != runs["cpu"]["out"] or \
+                    not runs["cpu"]["arch"]:
+                raise AssertionError(f"(j, scales={scales}, {which}) archive "
+                                     "or plotfiles differ from the "
+                                     "device=cpu run")
         out[f"scales{scales}"] = {k: _summary(v) for k, v in runs.items()}
     import wavelet_tpu_torch
 
     comp = os.path.join(WORK, "j2_mesh_arch")
     trees = {}
-    for which, m, opts in (("one", None, {}), ("mesh", mesh, giant)):
+    for which, m, opts, dev, _ in variants:
         dst = os.path.join(WORK, f"j_preview_{which}")
         _reset_launches()
         t0 = time.perf_counter()
-        ds = wavelet_tpu_torch.decompress(comp, dst, device=DEV, mesh=m,
+        ds = wavelet_tpu_torch.decompress(comp, dst, device=dev, mesh=m,
                                           preview=2, **opts)
         out[f"preview2_{which}"] = {
             "decompress_s": time.perf_counter() - t0,
@@ -1263,7 +1280,8 @@ def run_giant() -> dict:
             raise AssertionError("(j) preview=2 shipped "
                                  f"{ds['host_to_device_bytes']} bytes")
         trees[which] = _tree(dst)
-    if trees["mesh"] != trees["one"] or not trees["mesh"]:
+    if trees["mesh"] != trees["cpu"] or trees["one"] != trees["cpu"] or \
+            not trees["cpu"]:
         raise AssertionError("(j) preview=2 plotfiles differ")
     out["preview2_rel_err_to_blockmean"] = _preview_rel_err(
         os.path.join(WORK, "j2_mesh_out"),
@@ -1363,7 +1381,8 @@ def run_two_processes(data_dir: str) -> dict:
     of (a)'s first timestep in one and in two processes: the archives equal
     and the payloads (a)'s; ``-c`` of (c)'s first timestep with
     ``archive=bundle`` in two processes (the histograms summed over gloo):
-    the bundle members equal a single-process run's, each process's bundle
+    the bundle members equal a single-process device=cpu run's (the plain
+    versions of the kernels), each process's bundle
     named by its rank; ``-d`` of (a)'s archive in one and in two processes
     (a timestep each): (a)'s plotfiles."""
     from wavelet_tpu_torch.io import bundle
@@ -1393,7 +1412,7 @@ def run_two_processes(data_dir: str) -> dict:
     keys = ["thresholdmode=global", "keepfraction=0.02", "scales=2",
             "archive=bundle"]
     one = os.path.join(WORK, "k_c1_arch") + os.sep
-    _run_cli(c_args(one, keys) + [f"device={DEV}"])
+    _run_cli(c_args(one, keys) + ["device=cpu"])
     two = os.path.join(WORK, "k_c2_arch") + os.sep
     wall, counts = _cli_procs("k_c2", c_args(two, keys), 2)
     _each_launched("k, -c c bundle", counts, "forward_hist")

@@ -72,7 +72,7 @@ def _plan(mod, eng, x):
 
 def test_mesh_lists_devices_with_repeats():
     m = mesh_lib.data_mesh(["cpu", "cpu"])
-    assert m.size == 2 and m.axis_names == (mesh_lib.DATA_AXIS,) == ("data",)
+    assert m.size == 2 and mesh_lib.DATA_AXIS == "data"
     assert all(d == torch.device("cpu") for d in m.devices)
     with pytest.raises(ValueError, match="at least one"):
         mesh_lib.data_mesh([])
@@ -407,6 +407,17 @@ def test_cli_devices_beyond_the_cards_is_jax_s_error(monkeypatch, caplog):
     assert "devices=2 but only 0 device(s) available" in caplog.text
     assert cli._mesh("cpu", 1) is None
     assert cli._mesh("cpu", 3).size == 3
+
+
+@pytest.mark.parametrize("rank,cards,want", [(0, 4, [0, 1]), (1, 4, [2, 3]),
+                                             (1, 3, [2, 0])])
+def test_cli_devices_mesh_is_offset_by_rank(monkeypatch, rank, cards, want):
+    # processes=P devices=N: each process takes its own N cards, as
+    # devices=1 spreads the processes by rank
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(mesh_lib, "process_index", lambda: rank)
+    assert [d.index for d in cli._mesh("cuda", 2).devices] == want
 
 
 _C = ["datadir=x", "minfile=a", "maxfile=b", "minlevel=0", "maxlevel=0",

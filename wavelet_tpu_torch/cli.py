@@ -27,7 +27,8 @@ unavailable)::
 ``transfer=dense|sparse|auto`` works on ``-c`` and ``-d``.  ``devices=N``
 runs over a mesh of N entries (``cuda:0..N-1``, or N CPU entries with
 ``device=cpu``); ``coordinator=`` joins a gloo process group of
-``processes=`` processes, each working on ``cuda:(processid % cards)``.
+``processes=`` processes, each working on ``cuda:(processid % cards)``, or
+with ``devices=N`` on ``cuda:(processid*N + i) % cards`` for i < N.
 ``giantmesh=global`` is not ported and raises ``NotImplementedError``.
 """
 
@@ -68,8 +69,8 @@ Keys: device=cuda|cpu (default cuda)  payload=f32|q16  codec=xz|raw
       fastestimate=1 (-estimate in memory)  devicemetrics=1 (-estimate
       RMSE on the device)
       preview=p (-d: the low band at 1/2^p resolution per axis)
-      devices=N (a mesh of N devices: cuda:0..N-1, or N CPU entries with
-      device=cpu)  giantbox=BYTES (boxes >= this split WITHIN the box
+      devices=N (a mesh of N devices: cuda:0..N-1, offset by processid*N
+      in a process group, or N CPU entries with device=cpu)  giantbox=BYTES (boxes >= this split WITHIN the box
       along X over the mesh; default 1 GiB, needs devices=N > 1)
       coordinator=host:port processes=N processid=I (multi-process, gloo)
       profile=DIR (torch.profiler trace)
@@ -306,8 +307,10 @@ def main(argv=None):
 
 
 def _mesh(device: str, n_dev: int):
-    """``devices=N``: a mesh of ``cuda:0..N-1`` (raising, as the JAX CLI
-    does, when fewer cards exist), or of N CPU entries; None for N = 1."""
+    """``devices=N``: a mesh of N cards (raising, as the JAX CLI does,
+    when fewer exist), or of N CPU entries; None for N = 1.  Process I of a
+    group takes cards ``I*N .. I*N+N-1`` (modulo the card count), so the
+    processes of one host spread over its cards as with ``devices=1``."""
     if n_dev <= 1:
         return None
     from wavelet_tpu_torch.runtime import mesh as mesh_lib
@@ -322,7 +325,9 @@ def _mesh(device: str, n_dev: int):
         # than the user asked for
         raise ValueError(
             f"devices={n_dev} but only {have} device(s) available")
-    return mesh_lib.data_mesh([f"cuda:{i}" for i in range(n_dev)])
+    first = mesh_lib.process_index() * n_dev
+    return mesh_lib.data_mesh([f"cuda:{(first + i) % have}"
+                               for i in range(n_dev)])
 
 
 def _leave_group() -> None:

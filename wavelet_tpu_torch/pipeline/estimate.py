@@ -117,18 +117,16 @@ def _engine(cfg, mesh) -> engine.CodecEngine:
                               mesh=mesh, giant_box_bytes=cfg.giant_box_bytes)
 
 
-def _metrics_result(run, cfg, mesh, regen, comp_size, files, levels,
-                    keep: float, eng=None, raw_size=None) -> dict:
+def _metrics_result(run, cfg, eng, regen, comp_size, files, levels,
+                    keep: float, raw_size=None) -> dict:
     """Per-component mean RMSE (unweighted over boxes, modes.cpp:269-291),
-    adjusted loss, and size percentage (modes.cpp:294-324).
+    adjusted loss, and size percentage (modes.cpp:294-324); ``eng`` runs
+    the RMSE under ``devicemetrics=1``.
 
-    ``eng``/``raw_size`` let sweep callers hoist the sweep-invariant work
-    (engine construction with its kernel caches; the os.walk over every
-    raw FAB file) out of the per-value loop."""
+    ``raw_size`` lets sweep callers hoist the os.walk over every raw FAB
+    file out of the per-value loop."""
     lv = run.levels_data[0][0]
     if cfg.device_metrics:
-        if eng is None:
-            eng = _engine(cfg, mesh)
         per_box = [eng.rmse_batch(a, p) for a, p in zip(lv.boxes, regen)]
     else:
         per_box = [metrics.rmse_per_box(a, p)
@@ -183,9 +181,8 @@ def _fast_estimate(run, cfg, mesh, files, levels) -> dict:
             log.info("Compression complete.")
             log.info("Decompression complete.")
             log.info("keep_fraction = %s (threshold %s):", frac, tval)
-            r = _metrics_result(run, cfg, mesh, regen, comp_size, files,
-                                levels, cfg.keep, eng=eng,
-                                raw_size=raw_size)
+            r = _metrics_result(run, cfg, eng, regen, comp_size, files,
+                                levels, cfg.keep, raw_size=raw_size)
             r["keep_fraction"] = float(frac)
             r["global_threshold"] = float(tval)
             sweep[repr(frac)] = r
@@ -207,9 +204,9 @@ def _fast_estimate(run, cfg, mesh, files, levels) -> dict:
         log.info("Compression complete.")
         log.info("Decompression complete.")
         log.info("keep = %s:", keep)
-        sweep[repr(keep)] = _metrics_result(run, cfg, mesh, regen,
+        sweep[repr(keep)] = _metrics_result(run, cfg, eng, regen,
                                             comp_size, files, levels, keep,
-                                            eng=eng, raw_size=raw_size)
+                                            raw_size=raw_size)
     if len(keeps) == 1:
         return sweep[repr(keeps[0])]
     return {"keep_sweep": sweep}
@@ -254,7 +251,7 @@ def _estimate_scratch(run, cfg, mesh, files, levels) -> dict:
                 regen[it.box][comp_pos[it.comp_idx]] = out.item_view(i)
         log.info("Decompression complete.")
         comp_size = metrics.dir_size(scratch)
-        result = _metrics_result(run, cfg, mesh, regen, comp_size, files,
+        result = _metrics_result(run, cfg, eng, regen, comp_size, files,
                                  levels, cfg.keep)
         if cfg.threshold_mode == "global":
             # same result schema as the fast path's global rows

@@ -70,13 +70,16 @@ def split(coeffs: np.ndarray, d: int, scales: int) -> np.ndarray:
     return out.reshape(d, x // d, y, z)
 
 
-def _slabs_on_mesh(mesh, box: np.ndarray):
-    """The D X-slabs of ``box``, each as ``[1, X/D, Y, Z]`` on its entry."""
-    d = mesh.size
-    xs = box.shape[0] // d
+def _slabs_on_mesh(mesh, slabs: np.ndarray):
+    """``[D, X/D, Y, Z]`` -> slab k as ``[1, X/D, Y, Z]`` on entry k."""
     return [torch.from_numpy(np.ascontiguousarray(
-                box[k * xs:(k + 1) * xs], np.float32)[None]).to(dev)
+                slabs[k], np.float32)[None]).to(dev)
             for k, dev in enumerate(mesh.devices)]
+
+
+def _as_slabs(mesh, box: np.ndarray) -> np.ndarray:
+    """``[X, Y, Z]`` -> ``[D, X/D, Y, Z]``, a view of the box."""
+    return box.reshape(mesh.size, -1, *box.shape[1:])
 
 
 def sharded_box_forward(mesh, box: np.ndarray, scales: int):
@@ -85,7 +88,7 @@ def sharded_box_forward(mesh, box: np.ndarray, scales: int):
     extrema are the NaN-propagating max/min over the slabs'."""
     outs = [haar_cuda.fused_forward(s) if scales == 1
             else pyramid_cuda.pyramid_forward(s, scales)
-            for s in _slabs_on_mesh(mesh, box)]
+            for s in _slabs_on_mesh(mesh, _as_slabs(mesh, box))]
     coeffs = assemble(np.concatenate([c.cpu().numpy() for c, _, _ in outs]),
                       scales)
     maxv = np.max([float(mx.cpu()[0]) for _, mx, _ in outs]).astype(
@@ -103,7 +106,7 @@ def sharded_box_forward_hist(mesh, box: np.ndarray, scales: int,
     kernel counts with 64-bit atomics, so no slab needs the 2**31-element
     segmenting the JAX package's 32-bit device histogram does."""
     outs = [pyramid_cuda.forward_hist(s, scales)
-            for s in _slabs_on_mesh(mesh, box)]
+            for s in _slabs_on_mesh(mesh, _as_slabs(mesh, box))]
     hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
     for _, h in outs:
         hist += h.cpu().numpy()
@@ -117,8 +120,7 @@ def sharded_box_inverse(mesh, coeffs: np.ndarray, scales: int) -> np.ndarray:
     """Inverse of :func:`sharded_box_forward`: the box pyramid split into
     slab pyramids, each through K2 (scales 1) or K7 on its mesh entry,
     the slabs concatenated along X."""
-    slabs = split(coeffs, mesh.size, scales)
     outs = [haar_cuda.fused_inverse(s) if scales == 1
             else pyramid_cuda.pyramid_inverse(s, scales)
-            for s in _slabs_on_mesh(mesh, slabs.reshape(coeffs.shape))]
+            for s in _slabs_on_mesh(mesh, split(coeffs, mesh.size, scales))]
     return np.concatenate([o.cpu().numpy()[0] for o in outs])

@@ -58,7 +58,6 @@ class DeviceMesh:
             raise ValueError("a mesh needs at least one device")
         if len({d.type for d in self.devices}) > 1:
             raise ValueError(f"mesh mixes device types: {self.devices}")
-        self.axis_names = (DATA_AXIS,)
 
     @property
     def size(self) -> int:
@@ -82,26 +81,20 @@ def _dist():
     return dist if dist.is_available() and dist.is_initialized() else None
 
 
-def init_distributed(coordinator: str | None = None,
-                     num_processes: int | None = None,
-                     process_id: int | None = None) -> None:
-    """Join the gloo process group at ``coordinator`` (``host:port``).
+def init_distributed(coordinator: str | None, num_processes: int | None,
+                     process_id: int | None) -> None:
+    """Join the gloo process group at ``coordinator`` (``host:port``) as
+    rank ``process_id`` of ``num_processes``.
 
     A topology given without a coordinator is refused, as in the JAX
-    package: without an address the group would come up from the
-    environment and ignore ``num_processes``/``process_id``, so every
-    ``process_local_slice`` would be wrong with no error."""
+    package: the port never reads its topology from the environment, so
+    a missing address is an error, not a silently different group."""
     import torch.distributed as dist
 
     if coordinator is None:
-        if num_processes is not None or process_id is not None:
-            raise ValueError(
-                "num_processes/process_id require a coordinator address "
-                "(coordinator=host:port); without one the process group "
-                "reads its topology from the environment and would "
-                "ignore them")
-        dist.init_process_group("gloo")
-        return
+        raise ValueError(
+            "num_processes/process_id require a coordinator address "
+            "(coordinator=host:port)")
     if num_processes is None or process_id is None:
         raise ValueError("coordinator= requires processes=N and "
                          "processid=I")
