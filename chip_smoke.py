@@ -74,8 +74,18 @@ Phases (any failure exits non-zero before the last line):
    equal to one process's archive and (a)'s payloads, ``-c`` of (c)'s
    first timestep with ``archive=bundle`` equal in its members to one
    process's, one bundle per rank, and ``-d`` of (a)'s archive equal to
-   (a)'s plotfiles.  The wall of each of (h)-(k) is printed on its own
-   line.
+   (a)'s plotfiles; then ``giantmesh=global`` in two processes with the
+   default ``devices=`` (a global mesh of two entries of cuda:0, one per
+   process), on two timesteps each holding a 128^3 box at
+   ``giantbox=4194304`` and eight 64^3 boxes: box mode at ``scales=2``
+   (-c, -c ``resume=1``, -d) and ``thresholdmode=global
+   keepfraction=0.02`` with a ``globalcache`` of one timestep, every
+   archive and plotfile equal to a one-process device=cpu run's, each
+   child printing its launch counts, gloo bytes and wall.  (l) The
+   collective steps (parity, global, train) over the two-entry
+   mesh at [160, 64, 64, 64] against eight CPU entries, bitwise (the RMSE
+   to rtol 1e-6), then ``dryrun_multichip(2)`` on the card.  The wall of
+   each of (h)-(l) is printed on its own line.
 6. Timing: kernel and plain-version times with CUDA events at the main
    path's 64^3 batch (the compaction on its coefficient rows; the packed
    kernels on the same boxes packed two to a row, and at P = 64 beside
@@ -185,6 +195,11 @@ GIANT_STEP = "plt00300"
 FORWARD = {1: "haar_forward", 2: "pyramid_forward"}
 INVERSE = {1: "haar_inverse", 2: "pyramid_inverse"}
 DEADLINE_S = 300           # (k): one deadline for both processes of a run
+GLOBAL_STEPS = ["plt00400", "plt00500"]   # (k)'s giantmesh=global run
+# (k)'s giant box: a 256^3 one made (k) 87.6 s longer on one H100 host
+# (30.9 s on another), mostly host f64 I/O in each process
+GLOBAL_N = 128
+GLOBAL_GIANT_BYTES = 4194304
 DEV = "cuda"               # the device of phases (h)-(k)
 
 
@@ -430,17 +445,12 @@ def engine_cap(counts, m: int) -> int:
     return int(min(m, max(128, -(-int(m * frac) // 128) * 128)))
 
 
-def main_path_rows(data_dir: str, device):
-    """The main path's compaction input: timestep 0's 160 boxes of 64^3
-    (4 components), one-scale coefficients on the card as flat [160,
-    262144], the keep=0.999 thresholds, and the engine's adapted cap."""
+def main_path_boxes(data_dir: str):
+    """Timestep 0's 160 boxes of 64^3 (4 components) as one f32 [160, 64,
+    64, 64] host array: the main path's largest batch."""
     import numpy as np
-    import torch
 
-    from wavelet_tpu_torch.core import threshold
     from wavelet_tpu_torch.io import plotfile
-    from wavelet_tpu_torch.kernels import haar_cuda
-    from wavelet_tpu_torch.runtime import engine
 
     boxes = []
     for lev in (0, 1):
@@ -448,8 +458,22 @@ def main_path_rows(data_dir: str, device):
                                  range(len(COMPONENTS)))
         boxes += [c for b in lv.boxes if b.shape[1:] == TIME_SHAPE[1:]
                   for c in b]
-    x = torch.from_numpy(np.stack(boxes).astype(np.float32)).to(device)
-    assert tuple(x.shape) == TIME_SHAPE, x.shape
+    x = np.stack(boxes).astype(np.float32)
+    assert x.shape == TIME_SHAPE, x.shape
+    return x
+
+
+def main_path_rows(data_dir: str, device):
+    """The main path's compaction input: :func:`main_path_boxes`'
+    one-scale coefficients on the card as flat [160, 262144], the
+    keep=0.999 thresholds, and the engine's adapted cap."""
+    import torch
+
+    from wavelet_tpu_torch.core import threshold
+    from wavelet_tpu_torch.kernels import haar_cuda
+    from wavelet_tpu_torch.runtime import engine
+
+    x = torch.from_numpy(main_path_boxes(data_dir)).to(device)
     c, mx, mn = haar_cuda.fused_forward_plain(x)
     flat = c.reshape(c.shape[0], -1)
     signed = engine.resolve_signed_absmax(
@@ -1289,16 +1313,21 @@ def run_giant() -> dict:
     return out
 
 
-# a child of (k): the CLI's own main, then its launch counts on one line
-CHILD = """import json, sys
+# a child of (k): the CLI's own main, then its launch counts, the bytes
+# it sent to gloo collectives of runtime/distributed, and its wall
+CHILD = """import json, sys, time
+t0 = time.perf_counter()
 from wavelet_tpu_torch import cli
 from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
                                        packed_cuda, pyramid_cuda)
+from wavelet_tpu_torch.runtime import distributed
 rc = cli.main(sys.argv[1:])
 counts = {}
 for mod in (haar_cuda, pyramid_cuda, compact_cuda, packed_cuda):
     counts.update(mod.launches)
 print("launches " + json.dumps(counts))
+print("gloo " + json.dumps(distributed.gloo_bytes))
+print("wall " + json.dumps(time.perf_counter() - t0))
 sys.exit(rc)
 """
 
@@ -1315,7 +1344,8 @@ def _cli_procs(name: str, args, n_procs: int):
     """``n_procs`` CLI processes (a gloo process group on localhost when
     more than one) under one deadline: a process that fails or outlives
     it ends the run and every process still running is killed.  -> (wall
-    seconds, each process's launch counts)."""
+    seconds, per process: its launch counts, gloo bytes, own wall and
+    log)."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO)
     logs = [os.path.join(WORK, f"{name}_p{i}.log") for i in range(n_procs)]
@@ -1343,17 +1373,24 @@ def _cli_procs(name: str, args, n_procs: int):
                 p.kill()
             p.wait()
     wall = time.perf_counter() - t0
-    launches = []
+    out = []
     for i, (p, path) in enumerate(zip(procs, logs)):
         with open(path) as f:
             text = f.read()
         if p.returncode != 0:
             raise AssertionError(f"({name}) process {i} of {n_procs} exited "
                                  f"{p.returncode}:\n{text[-3000:]}")
-        launches.append(next(json.loads(line.split(" ", 1)[1])
-                             for line in text.splitlines()
-                             if line.startswith("launches ")))
-    return wall, launches
+        lines = {line.split(" ", 1)[0]: json.loads(line.split(" ", 1)[1])
+                 for line in text.splitlines()
+                 if line.split(" ", 1)[0] in ("launches", "gloo", "wall")}
+        out.append({"launches": lines["launches"],
+                    "gloo_bytes": lines["gloo"], "wall_s": lines["wall"],
+                    "log": text})
+    return wall, out
+
+
+def _counts(procs) -> list:
+    return [p["launches"] for p in procs]
 
 
 def _launch_dicts(res):
@@ -1398,8 +1435,9 @@ def run_two_processes(data_dir: str) -> dict:
     out, archs = {}, {}
     for n in (1, 2):
         comp = os.path.join(WORK, f"k_a{n}_arch") + os.sep
-        wall, counts = _cli_procs(f"k_a{n}", c_args(comp, [f"keep={KEEP}"]),
-                                  n)
+        wall, procs = _cli_procs(f"k_a{n}", c_args(comp, [f"keep={KEEP}"]),
+                                 n)
+        counts = _counts(procs)
         _each_launched(f"k, -c a, {n} process(es)", counts, "haar_forward")
         archs[n] = _tree(comp)
         out[f"a_compress_{n}p"] = {"wall_s": wall, "launches": counts}
@@ -1414,7 +1452,8 @@ def run_two_processes(data_dir: str) -> dict:
     one = os.path.join(WORK, "k_c1_arch") + os.sep
     _run_cli(c_args(one, keys) + ["device=cpu"])
     two = os.path.join(WORK, "k_c2_arch") + os.sep
-    wall, counts = _cli_procs("k_c2", c_args(two, keys), 2)
+    wall, procs = _cli_procs("k_c2", c_args(two, keys), 2)
+    counts = _counts(procs)
     _each_launched("k, -c c bundle", counts, "forward_hist")
     names = bundle.list_bundles(two)
     sets = [bundle.BundleSet(d) for d in (one, two)]
@@ -1435,13 +1474,175 @@ def run_two_processes(data_dir: str) -> dict:
     want = _tree(os.path.join(WORK, "a_out_cuda"))
     for n in (1, 2):
         dst = os.path.join(WORK, f"k_d{n}_out") + os.sep
-        wall, counts = _cli_procs(
+        wall, procs = _cli_procs(
             f"k_d{n}", [f"compresseddir={comp}", f"out={dst}", "-d"], n)
+        counts = _counts(procs)
         _each_launched(f"k, -d a, {n} process(es)", counts, "haar_inverse")
         if _tree(dst) != want:
             raise AssertionError(f"(k) -d in {n} process(es) differs from "
                                  "(a)'s plotfiles")
         out[f"a_decompress_{n}p"] = {"wall_s": wall, "launches": counts}
+    out["giantmesh_global"] = run_giant_global()
+    return out
+
+
+def make_giant_global_dataset(data_dir: str, n: int) -> int:
+    """(k)'s giantmesh=global run: GLOBAL_STEPS, one component, each
+    timestep one ``n``^3 box at the origin and eight 64^3 boxes beside it
+    (f64 FABs); returns one timestep's f32 bytes."""
+    import numpy as np
+
+    from wavelet_tpu_torch.io import plotfile
+
+    rng = np.random.default_rng(4)
+    locs = [(0, 0, 0)] + [(n + 64 * i, 64 * j, 64 * k) for i in range(2)
+                          for j in range(2) for k in range(2)]
+    dims = [(n, n, n)] + [(64, 64, 64)] * 8
+    nbytes = 0
+    for t, name in enumerate(GLOBAL_STEPS):
+        boxes = [_field(d, o, 1.0 / n, t, 0, rng)[None]
+                 for o, d in zip(locs, dims)]
+        nbytes = sum(b.nbytes for b in boxes)
+        plotfile.write_plotfile(
+            os.path.join(data_dir, name), [boxes], [locs], [dims],
+            ["density"], 0.004 + 0.001 * t, [0.0, 0.0, 0.0],
+            [1.0, 1.0, 1.0], (2, 2, 2), (n + 128, n, n), [400 + 100 * t])
+    return nbytes
+
+
+def run_giant_global() -> dict:
+    """(k), ``giantmesh=global``: two CLI processes on the one card with
+    the default ``devices=``, so a global mesh of two entries of cuda:0,
+    one per process.  Each timestep holds one GLOBAL_N^3 box
+    (``giantbox=GLOBAL_GIANT_BYTES``, ``codec=raw``) and eight 64^3 boxes;
+    each process owns one timestep's items and takes part in both giant
+    boxes (its X-slab on its entry, the slab pyramids gathered over
+    gloo).  Box mode at ``scales=2`` (-c, -c resume=1, -d) and ``thresholdmode=global
+    keepfraction=0.02`` with a ``globalcache`` that holds one of the two
+    timesteps, each archive and plotfile byte for byte a one-process
+    device=cpu run's; both logs show the global mesh and the giant path,
+    and each process launches its slab kernels."""
+    data_dir = os.path.join(WORK, "giant_global_data")
+    t0 = time.perf_counter()
+    t_bytes = make_giant_global_dataset(data_dir, GLOBAL_N)
+    out = {"box": [GLOBAL_N] * 3, "timestep_bytes": t_bytes,
+           "dataset_s": time.perf_counter() - t0}
+    cache = t_bytes + t_bytes // 2     # one timestep, not two
+
+    def c_args(comp, keys):
+        return [f"datadir={data_dir}", f"minfile={GLOBAL_STEPS[0]}",
+                f"maxfile={GLOBAL_STEPS[-1]}", "minlevel=0", "maxlevel=0",
+                "components=density", f"giantbox={GLOBAL_GIANT_BYTES}",
+                "codec=raw", *keys, f"compresseddir={comp}", "-c"]
+
+    box = [f"keep={KEEP}", "scales=2"]
+    glob = ["thresholdmode=global", "keepfraction=0.02",
+            f"globalcache={cache}"]
+    ref = {k: os.path.join(WORK, f"kg_{k}_cpu") + os.sep
+           for k in ("box", "box_out", "global")}
+    t0 = time.perf_counter()
+    _run_cli(c_args(ref["box"], box) + ["device=cpu"])
+    _run_cli([f"compresseddir={ref['box']}", f"out={ref['box_out']}",
+              "device=cpu", "-d"])
+    _run_cli(c_args(ref["global"], glob) + ["device=cpu"])
+    out["cpu_reference_s"] = time.perf_counter() - t0
+    two = {k: os.path.join(WORK, f"kg_{k}_2p") + os.sep
+           for k in ("box", "box_out", "global")}
+    gm = ["giantmesh=global"]
+    runs = (("box_compress", c_args(two["box"], box + gm), "box",
+             "pyramid_forward", "Giant box path"),
+            ("box_resume", c_args(two["box"], box + gm + ["resume=1"]),
+             "box", "pyramid_forward", "Giant box path"),
+            ("box_decompress", [f"compresseddir={two['box']}",
+                                f"out={two['box_out']}",
+                                f"giantbox={GLOBAL_GIANT_BYTES}", *gm,
+                                "-d"],
+             "box_out", "pyramid_inverse", None),
+            ("global_compress", c_args(two["global"], glob + gm), "global",
+             "forward_hist", "retained 1/2"))
+    for name, args, which, kernel, line in runs:
+        wall, procs = _cli_procs(f"kg_{name}", args, 2)
+        for i, p in enumerate(procs):
+            for want in ("giantmesh=global", line):
+                if want and want not in p["log"]:
+                    raise AssertionError(f"(k, {name}) process {i} logged "
+                                         f"no {want!r}:\n{p['log'][-3000:]}")
+            if not p["gloo_bytes"]["all_gather"]:
+                raise AssertionError(f"(k, {name}) process {i} gathered "
+                                     "nothing over gloo")
+        _each_launched(f"k, {name}", _counts(procs), kernel)
+        if _tree(two[which]) != _tree(ref[which]) or not _tree(ref[which]):
+            raise AssertionError(f"(k, {name}) output differs from the "
+                                 "one-process device=cpu run's")
+        out[name] = {"wall_s": wall,
+                     "launches": [p["launches"] for p in procs],
+                     "gloo_bytes": [p["gloo_bytes"] for p in procs],
+                     "process_wall_s": [p["wall_s"] for p in procs]}
+    return out
+
+
+def run_steps(data_dir: str) -> dict:
+    """(l): the collective steps over the two-entry mesh at the
+    main path's width (:func:`main_path_boxes`, [160, 64, 64, 64] f32)
+    against the same steps over eight CPU entries: coefficients,
+    thresholds, kept counts and reconstructions bitwise, the RMSE to rtol
+    1e-6; each step's kernels launched once per entry.  Then
+    ``dryrun_multichip(2)`` on the card."""
+    import numpy as np
+
+    from wavelet_tpu_torch import entry
+    from wavelet_tpu_torch.runtime import distributed
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
+
+    batch = main_path_boxes(data_dir)
+    meshes = {"cuda": _two_entry_mesh(),
+              "cpu": mesh_lib.data_mesh(["cpu"] * 8)}
+    steps = {
+        "parity": (distributed.make_parity_compress_step,
+                   {"haar_forward": 2}),
+        "global": (lambda m: distributed.make_global_compress_step(m, 0.02),
+                   {"forward_hist": 2}),
+        "train": (lambda m: distributed.make_train_step(m, 0.02),
+                  {"forward_hist": 2, "haar_inverse": 2}),
+    }
+    out = {"mesh": [str(d) for d in meshes["cuda"].devices],
+           "shape": list(batch.shape)}
+    for name, (make, want) in steps.items():
+        res, row = {}, {}
+        for dev, mesh in meshes.items():
+            _reset_launches()
+            t0 = time.perf_counter()
+            res[dev] = make(mesh)(batch)
+            row[f"{dev}_s"] = time.perf_counter() - t0
+            row[f"{dev}_launches"] = _launches()
+        _expect_launches(f"l, {name}, cuda", row["cuda_launches"], want)
+        _expect_launches(f"l, {name}, cpu", row["cpu_launches"], {})
+        row["launches"] = row.pop("cuda_launches")
+        del row["cpu_launches"]
+        for k, (a, b) in enumerate(zip(res["cuda"], res["cpu"])):
+            if name == "train" and k == 2:
+                if not np.isclose(a, b, rtol=1e-6, atol=0):
+                    raise AssertionError(f"(l, train) RMSE {a} against {b}")
+                row["rmse"] = float(a)
+            elif name == "global" and k == 2:
+                # the limbs are sums of per-entry counts, so they depend
+                # on the entry count; the count they make does not
+                if distributed.kept_count(a) != distributed.kept_count(b):
+                    raise AssertionError(f"(l, global) kept {a} against {b}")
+            elif not np.array_equal(
+                    np.ascontiguousarray(a).reshape(-1).view(np.uint8),
+                    np.ascontiguousarray(b).reshape(-1).view(np.uint8)):
+                raise AssertionError(f"(l, {name}) output {k} differs from "
+                                     "the eight CPU entries'")
+        if name == "global":
+            row["kept"] = distributed.kept_count(res["cuda"][2])
+            row["threshold"] = float(res["cuda"][1])
+        out[name] = row
+    t0 = time.perf_counter()
+    _reset_launches()
+    out["dryrun_multichip_2"] = {**entry.dryrun_multichip(2),
+                                 "s": time.perf_counter() - t0,
+                                 "launches": _launches()}
     return out
 
 
@@ -1759,8 +1960,12 @@ def main() -> int:
              lambda: run_mesh(data_dir)),
             ("j", f"one {GIANT_N}^3 box split along X, scales=1|2, then "
                   "preview=2", run_giant),
-            ("k", "two processes on one card: -c (a), -c (c) bundle, -d (a)",
-             lambda: run_two_processes(data_dir))):
+            ("k", "two processes on one card: -c (a), -c (c) bundle, -d "
+                  f"(a); giantmesh=global with a {GLOBAL_N}^3 box",
+             lambda: run_two_processes(data_dir)),
+            ("l", "the collective steps over a two-entry mesh against eight "
+                  "CPU entries; dryrun_multichip(2)",
+             lambda: run_steps(data_dir))):
         t0 = time.perf_counter()
         res = run()
         secs = time.perf_counter() - t0

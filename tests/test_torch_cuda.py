@@ -394,3 +394,41 @@ def test_giant_box_over_two_entries_equals_unsplit(cuda_device, scales):
     for a, b in zip(*outs):
         np.testing.assert_array_equal(np.asarray(a).view(np.int32),
                                       np.asarray(b).view(np.int32))
+
+
+@pytest.mark.parametrize("kf", [0.5, 0.02, 0.001])
+def test_device_threshold_on_the_card_equals_host(cuda_device, kf):
+    from wavelet_tpu_torch.core import threshold
+
+    x = torch.from_numpy(_batch((4, 16, 16, 16), 17)).to(cuda_device)
+    hist = threshold.abs_exponent_histogram(x)
+    t = threshold.threshold_from_histogram_device(hist, kf, x.numel())
+    assert t.device == x.device
+    want = threshold.threshold_from_histogram(hist.cpu().numpy(), kf)
+    assert t.cpu().numpy().tobytes() == np.float32(want).tobytes()
+
+
+def test_collective_steps_on_two_entries_equal_cpu_entries(cuda_device):
+    from wavelet_tpu_torch.runtime import distributed
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
+
+    batch = _batch((8, 16, 16, 8), 18)
+    cpu = mesh_lib.data_mesh(["cpu"] * 4)
+    for make in (distributed.make_parity_compress_step,
+                 lambda m: distributed.make_global_compress_step(m, 0.05)):
+        for a, b in zip(make(_mesh2())(batch), make(cpu)(batch)):
+            assert np.ascontiguousarray(a).tobytes() == \
+                np.ascontiguousarray(b).tobytes()
+    recon, thr, rmse = distributed.make_train_step(_mesh2(), 0.05)(batch)
+    crecon, cthr, crmse = distributed.make_train_step(cpu, 0.05)(batch)
+    assert recon.tobytes() == crecon.tobytes() and thr == cthr
+    np.testing.assert_allclose(rmse, crmse, rtol=1e-6)
+
+
+def test_dryrun_multichip_on_the_card(cuda_device):
+    from wavelet_tpu_torch import entry
+
+    before = dict(pyramid_cuda.launches)
+    out = entry.dryrun_multichip(2)
+    assert np.isfinite(out["rmse"])
+    assert pyramid_cuda.launches["forward_hist"] > before["forward_hist"]

@@ -410,13 +410,18 @@ def test_cli_devices_beyond_the_cards_is_jax_s_error(monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("rank,cards,want", [(0, 4, [0, 1]), (1, 4, [2, 3]),
-                                             (1, 3, [2, 0])])
+                                             (1, 3, [2, 3])])
 def test_cli_devices_mesh_is_offset_by_rank(monkeypatch, rank, cards, want):
-    # processes=P devices=N: each process takes its own N cards, as
-    # devices=1 spreads the processes by rank
+    # processes=P devices=N on one host: each process takes its own N
+    # cards, as devices=1 spreads the processes by rank; cards the host
+    # does not have are refused, never wrapped onto another rank's
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     monkeypatch.setattr(mesh_lib, "process_index", lambda: rank)
+    if max(want) >= cards:
+        with pytest.raises(ValueError, match="this host has 3 card"):
+            cli._mesh("cuda", 2)
+        return
     assert [d.index for d in cli._mesh("cuda", 2).devices] == want
 
 

@@ -25,6 +25,7 @@ torch.set_num_threads(2)
 
 from conftest import drain_procs, tree_bytes  # noqa: E402
 
+from wavelet_tpu import cli as jcli  # noqa: E402
 from wavelet_tpu.io import plotfile  # noqa: E402
 import wavelet_tpu_torch  # noqa: E402
 from wavelet_tpu_torch import cli  # noqa: E402
@@ -262,10 +263,16 @@ def test_bundle_writer_names_carry_the_process_index(monkeypatch, tmp_path):
     ["giantmesh=global", "-estimate"],
 ])
 def test_cli_giantmesh_global_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.parse_argv(["datadir=x", "minfile=a", "maxfile=b", "minlevel=0",
-                        "maxlevel=0", "components=temp", "keep=0.9",
-                        "compresseddir=y", "out=z", "device=cpu"] + argv)
+    """``giantmesh=global`` parses into ``cfg.giant_mesh`` for every mode
+    that takes it, as in the JAX CLI (the default is ``local``)."""
+    base = ["datadir=x", "minfile=a", "maxfile=b", "minlevel=0",
+            "maxlevel=0", "components=temp", "keep=0.9", "compresseddir=y",
+            "out=z", "device=cpu"]
+    _, cfg = cli.parse_argv(base + argv)
+    _, jcfg = jcli.parse_argv(base[:-1] + argv)
+    assert cfg.giant_mesh == jcfg.giant_mesh == "global"
+    _, cfg = cli.parse_argv(base + argv[1:])
+    assert cfg.giant_mesh == "local"
 
 
 def test_allreduce_helper_sums_in_one_process_group(tmp_path):

@@ -69,6 +69,8 @@ assert cli.main(est + ["fastestimate=1", "devicemetrics=1", "device=cpu",
                        "-estimate"]) == 0
 assert cli.main([f"compresseddir={root}/arch_h/", "-check"]) == 0
 assert cli.main([f"compresseddir={root}/arch_h/", "-info"]) == 0
+from wavelet_tpu_torch import entry
+entry.dryrun_multichip(2, device="cpu")
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and (m.split(".")[0] in ("jax", "jaxlib",
                                                             "wavelet_tpu")))

@@ -24,6 +24,7 @@ torch.set_num_threads(2)
 
 from conftest import tree_bytes  # noqa: E402
 
+from wavelet_tpu import cli as jcli  # noqa: E402
 from wavelet_tpu.io import plotfile  # noqa: E402
 from wavelet_tpu.pipeline import Config as JConfig  # noqa: E402
 from wavelet_tpu.pipeline import compress_run as j_compress  # noqa: E402
@@ -171,28 +172,40 @@ def test_cli_device_cuda_raises_without_cuda(runs, tmp_path, monkeypatch):
 
 
 def test_cli_unported_modes_raise():
-    # giantmesh=global is the one key value of the JAX CLI the port does
-    # not run (preview, devices, giantbox, profile and the multi-process
-    # keys do)
-    assert cli._UNPORTED == {"giantmesh": "local"}
-    with pytest.raises(NotImplementedError):
-        cli.parse_argv(["datadir=x", "minfile=a", "maxfile=b", "minlevel=0",
-                        "maxlevel=0", "components=temp", "keep=0.9",
-                        "compresseddir=y", "device=cpu", "giantmesh=global",
-                        "devices=2", "-c"])
+    """The port runs every key value of the JAX CLI: no refusal list is
+    left, and an unknown ``giantmesh=`` value is refused as the JAX CLI
+    refuses it."""
+    assert not hasattr(cli, "_UNPORTED")
+    argv = ["datadir=x", "minfile=a", "maxfile=b", "minlevel=0",
+            "maxlevel=0", "components=temp", "keep=0.9", "compresseddir=y",
+            "giantmesh=bogus", "devices=2", "-c"]
+    with pytest.raises(SystemExit) as got:
+        cli.parse_argv(argv + ["device=cpu"])
+    with pytest.raises(SystemExit) as want:
+        jcli.parse_argv(argv)
+    assert str(got.value) == str(want.value) == (
+        "Unknown giantmesh='bogus' (local|global)")
 
 
 @pytest.mark.parametrize("option", [{"giant_mesh": "global"},
                                     {"process_id": 1},
                                     {"coordinator": "localhost:1"}])
 def test_api_rejects_unported_options(runs, tmp_path, option):
-    # giant_mesh is not ported; the process group is joined before the
-    # call (runtime/mesh.init_distributed), not through the API
+    # the process group is joined before the call
+    # (runtime/mesh.init_distributed), not through the API; giant_mesh is
+    # a Config field, and in one process a global giant mesh is this
+    # process's mesh, so the archive is the default run's
+    kw = dict(min_time="plt00010", max_time="plt00020",
+              components=list(COMPS), min_level=0, max_level=1, keep=0.999,
+              device="cpu")
+    if "giant_mesh" in option:
+        wavelet_tpu_torch.compress(runs["data"], str(tmp_path / "a"),
+                                   **kw, **option)
+        assert tree_bytes(tmp_path / "a") == tree_bytes(runs["default"][0])
+        return
     with pytest.raises(TypeError, match="unknown option"):
-        wavelet_tpu_torch.compress(
-            runs["data"], str(tmp_path / "a"), min_time="plt00010",
-            max_time="plt00010", components=["temp"], device="cpu",
-            **option)
+        wavelet_tpu_torch.compress(runs["data"], str(tmp_path / "a"), **kw,
+                                   **option)
     assert not os.path.exists(tmp_path / "a")
 
 

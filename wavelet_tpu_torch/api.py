@@ -11,7 +11,8 @@
 Global thresholds, pyramids and sparse transfer take the JAX package's
 keyword names: ``threshold_mode="global", keep_fraction=0.02, scales=2,
 global_cache_bytes=...``, ``transfer="dense"|"sparse"|"auto"`` (for both
-calls), ``preview=p`` and ``giant_box_bytes=``.  ``mesh=`` (a
+calls), ``preview=p``, ``giant_box_bytes=`` and ``giant_mesh="global"``
+(giant boxes split over every process's entries).  ``mesh=`` (a
 :class:`~wavelet_tpu_torch.runtime.mesh.DeviceMesh` from
 :func:`~wavelet_tpu_torch.runtime.mesh.data_mesh`, of ``device``'s type)
 splits the batches over its entries, like the CLI's ``devices=N``; a

@@ -23,13 +23,16 @@ unavailable)::
     python -m wavelet_tpu_torch.cli ... devices=2 giantbox=268435456 -c
     python -m wavelet_tpu_torch.cli ... coordinator=127.0.0.1:29500 \
         processes=2 processid=0 -c      # and processid=1 in a second process
+    python -m wavelet_tpu_torch.cli ... giantbox=268435456 \
+        giantmesh=global coordinator=... processes=2 processid=I -c
 
 ``transfer=dense|sparse|auto`` works on ``-c`` and ``-d``.  ``devices=N``
 runs over a mesh of N entries (``cuda:0..N-1``, or N CPU entries with
 ``device=cpu``); ``coordinator=`` joins a gloo process group of
-``processes=`` processes, each working on ``cuda:(processid % cards)``, or
-with ``devices=N`` on ``cuda:(processid*N + i) % cards`` for i < N.
-``giantmesh=global`` is not ported and raises ``NotImplementedError``.
+``processes=`` processes.  A process's local rank L is the number of
+lower ranks on its host: it works on ``cuda:(L % cards)``, or with
+``devices=N`` on its host's cards ``L*N .. L*N+N-1`` (which must exist).
+``giantmesh=global`` splits giant boxes over every process's entries.
 """
 
 from __future__ import annotations
@@ -69,19 +72,19 @@ Keys: device=cuda|cpu (default cuda)  payload=f32|q16  codec=xz|raw
       fastestimate=1 (-estimate in memory)  devicemetrics=1 (-estimate
       RMSE on the device)
       preview=p (-d: the low band at 1/2^p resolution per axis)
-      devices=N (a mesh of N devices: cuda:0..N-1, offset by processid*N
-      in a process group, or N CPU entries with device=cpu)  giantbox=BYTES (boxes >= this split WITHIN the box
-      along X over the mesh; default 1 GiB, needs devices=N > 1)
+      devices=N (a mesh of N devices: cuda:0..N-1, offset by the local
+      rank * N in a process group, or N CPU entries with device=cpu)
+      giantbox=BYTES (boxes >= this split WITHIN the box along X over the
+      mesh; default 1 GiB; needs devices=N > 1, several cards per process
+      or giantmesh=global)
+      giantmesh=local|global (global: giant boxes split over every
+      process's entries, for boxes beyond one process's devices)
       coordinator=host:port processes=N processid=I (multi-process, gloo)
       profile=DIR (torch.profiler trace)
 Sweeps (-estimate only): keep="k1 k2 ..." or keepfraction="f1 f2 ..."
 Kernel route: WAVELET_TPU_LAYOUT=auto|interleaved|halves (halves: the
 lane-packed kernels at scales=1)
 """
-
-# keys of wavelet_tpu.cli whose non-default values this port does not run
-_UNPORTED = {"giantmesh": "local"}
-
 
 def _kv(args):
     out = {}
@@ -114,14 +117,6 @@ def parse_argv(argv):
                          "decompression, -estimate for estimate mode, "
                          "-check for archive validation, or -info for an "
                          "archive summary! (-h for usage)")
-    if kv.get("giantmesh", "local") not in ("local", "global"):
-        raise SystemExit(f"Unknown giantmesh={kv['giantmesh']!r} "
-                         "(local|global)")
-    for key, default in _UNPORTED.items():
-        if key in kv and kv[key] != default:
-            raise NotImplementedError(
-                f"{key}={kv[key]} is not ported to wavelet_tpu_torch yet "
-                "(giant boxes split over this process's mesh only)")
 
     def need(key):
         if key not in kv:
@@ -144,6 +139,12 @@ def parse_argv(argv):
                              "positive byte count")
         return v
 
+    def giantmesh_key():
+        v = kv.get("giantmesh", "local")
+        if v not in ("local", "global"):
+            raise SystemExit(f"Unknown giantmesh={v!r} (local|global)")
+        return v
+
     def globalcache_key():
         if "globalcache" not in kv:
             return None
@@ -160,6 +161,8 @@ def parse_argv(argv):
     cfg.prefetch = int(kv.get("prefetch", "0"))
     cfg.transfer = transfer_key()
     cfg.giant_box_bytes = giantbox_key()
+    if mode in ("c", "estimate", "d"):
+        cfg.giant_mesh = giantmesh_key()
     if mode in ("c", "estimate"):
         cfg.data_dir = need("datadir")
         cfg.min_time = need("minfile")
@@ -271,13 +274,15 @@ def main(argv=None):
             n, i = (int(kv[k]) if k in kv else None
                     for k in ("processes", "processid"))
             mesh_lib.init_distributed(kv["coordinator"], n, i)
-            if cfg.device == "cuda":
-                import torch
-
-                mesh_lib.resolve_device("cuda")   # raises without CUDA
-                # each process works on its rank's card
-                torch.cuda.set_device(mesh_lib.local_cuda_index())
         mesh = _mesh(cfg.device, int(kv.get("devices", "1")))
+        if kv.get("coordinator") and cfg.device == "cuda":
+            import torch
+
+            mesh_lib.resolve_device("cuda")   # raises without CUDA
+            # a bare "cuda" tensor lands where the process works: its
+            # mesh's first card, else its local rank's card
+            torch.cuda.set_device(mesh.devices[0] if mesh is not None
+                                  else mesh_lib.local_cuda_index())
     except (KeyError, ValueError) as e:
         log.error("bad argument: %s", e)
         _leave_group()
@@ -308,26 +313,17 @@ def main(argv=None):
 
 def _mesh(device: str, n_dev: int):
     """``devices=N``: a mesh of N cards (raising, as the JAX CLI does,
-    when fewer exist), or of N CPU entries; None for N = 1.  Process I of a
-    group takes cards ``I*N .. I*N+N-1`` (modulo the card count), so the
-    processes of one host spread over its cards as with ``devices=1``."""
+    when fewer exist), or of N CPU entries; None for N = 1.  In a process
+    group, local rank L takes its host's cards ``L*N .. L*N+N-1``
+    (``mesh.local_cards``), so the processes of one host spread over its
+    cards as with ``devices=1``; cards beyond the host's are refused."""
     if n_dev <= 1:
         return None
     from wavelet_tpu_torch.runtime import mesh as mesh_lib
 
     if device == "cpu":
         return mesh_lib.data_mesh(["cpu"] * n_dev)
-    import torch
-
-    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n_dev > have:
-        # a truncated mesh would run the split program on fewer cards
-        # than the user asked for
-        raise ValueError(
-            f"devices={n_dev} but only {have} device(s) available")
-    first = mesh_lib.process_index() * n_dev
-    return mesh_lib.data_mesh([f"cuda:{(first + i) % have}"
-                               for i in range(n_dev)])
+    return mesh_lib.data_mesh(mesh_lib.local_cards(n_dev))
 
 
 def _leave_group() -> None:

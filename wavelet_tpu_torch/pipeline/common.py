@@ -24,12 +24,11 @@ __all__ = ["Config", "clean_string", "format_files", "format_levels",
 
 @dataclass
 class Config:
-    """Reference ``Config`` (argparse.h:7-16) plus the extension keys the
-    port runs, under the JAX package's names.  The device mesh is not a
-    field: the pipelines take it as ``mesh=`` (CLI ``devices=N``), and a
-    multi-process run joins its process group first (CLI
-    ``coordinator=``, ``runtime/mesh.init_distributed``).  The JAX
-    package's ``giant_mesh="global"`` is not ported."""
+    """Reference ``Config`` (argparse.h:7-16) plus every extension key of
+    the JAX package, under its names, and ``device``.  The device mesh is
+    not a field: the pipelines take it as ``mesh=`` (CLI ``devices=N``),
+    and a multi-process run joins its process group first (CLI
+    ``coordinator=``, ``runtime/mesh.init_distributed``)."""
 
     data_dir: str = ""
     min_time: str = ""
@@ -79,6 +78,10 @@ class Config:
                                       #   entries (None = 1 GiB or
                                       #   WAVELET_TPU_GIANTBOX; CLI
                                       #   giantbox=BYTES)
+    giant_mesh: str = "local"         # "local": giant boxes split over
+                                      #   this process's entries | "global":
+                                      #   over every process's (CLI
+                                      #   giantmesh=global)
     device: str = "cuda"              # "cuda" (kernels) | "cpu" (plain)
 
 

@@ -30,6 +30,17 @@ items and writes its own payloads (bundles carry its process index);
 every process writes the same sidecars (atomic renames, last writer
 wins).  Global mode sums the processes' histograms before the threshold.
 
+With ``giantmesh=global`` in a multi-process run, giant boxes split over
+every process's entries (``CodecEngine(giant_mesh_mode="global")``), so
+giant items are collective: every process reads each timestep that holds
+a giant box and transforms every giant item of it, in the same order,
+while only the item's owner (its slice) writes the payload and counts it
+in the stats and the histogram.  Giant items are exempt from the resume
+filter (a resumed run recomputes them and rewrites the same bytes), and
+the ``globalcache`` admits a timestep by its size over all processes,
+which every process computes alike, so every process launches the same
+collectives.
+
 :func:`compress_collected` runs the same device codec and host pack over a
 run already in memory (``common.collect_run``); the estimate mode
 compresses into its scratch directory with it.
@@ -160,11 +171,23 @@ def _pack_overlapped(batches, device_step, out_dir: str,
             stats["pack_wait_seconds"] += time.perf_counter() - t1
 
 
-def _box_step(eng, packer, keep: float, transfer: str, stats: dict):
+def _owned_subset(items, owned):
+    """Indices of the ``items`` this process writes (all of them: None),
+    given the set of WorkItems it ``owned`` (None: every item)."""
+    if owned is None:
+        return None
+    mine = [i for i, it in enumerate(items) if it in owned]
+    return None if len(mine) == len(items) else mine
+
+
+def _box_step(eng, packer, keep: float, transfer: str, stats: dict,
+              owned=None):
     """The box-threshold device step for :func:`_pack_overlapped`: dense,
     or sparse where ``eng.transfer_mode`` says so (only the kept (index,
     value) pairs then cross the device->host link).  Adds the link bytes
-    to ``stats``."""
+    to ``stats``.  ``owned``: the WorkItems this process writes, when a
+    batch may hold others' (giant items split across processes, always
+    dense)."""
     def step(batch):
         if eng.transfer_mode(batch.shape, transfer) == "sparse":
             sparse, t32 = eng.compress_shapebatch_sparse(batch, keep)
@@ -173,8 +196,10 @@ def _box_step(eng, packer, keep: float, transfer: str, stats: dict):
                                       t32=t32), len(batch.items))
         coeffs, t32 = eng.compress_shapebatch(batch, keep)
         stats["device_to_host_bytes"] += coeffs.data.nbytes
-        return (functools.partial(packer.pack, coeff_batch=coeffs, t32=t32),
-                len(batch.items))
+        subset = _owned_subset(batch.items, owned)
+        return (functools.partial(packer.pack, coeff_batch=coeffs, t32=t32,
+                                  subset=subset),
+                len(batch.items) if subset is None else len(subset))
     return step
 
 
@@ -200,19 +225,29 @@ def _allreduce_histogram(hist: np.ndarray) -> np.ndarray:
 
 
 def _iter_timestep_items(meta: common.RunMeta, t: int, lv_boxes,
-                         lo: int, hi: int, base: int):
+                         lo: int, hi: int, base: int, giant_pred=None,
+                         owned_out: "set | None" = None):
     """This timestep's (WorkItem, array) pairs whose global item index
     (``base`` is the timestep's first) falls in this process's ``[lo,
-    hi)``, in (t, lev, box, comp) order."""
+    hi)``, in (t, lev, box, comp) order.
+
+    ``giant_pred(dims)`` (giant boxes split across processes): also yield
+    the other processes' items of giant shapes, whose transform is
+    collective; ``owned_out`` collects the in-slice WorkItems, the ones
+    this process writes."""
     g = base
     for li in range(len(meta.levels)):
         for b in range(meta.counts[t][li]):
             arr = lv_boxes[li].boxes[b]
             for c, comp_idx in enumerate(meta.comp_idxs):
-                if lo <= g < hi:
-                    yield (batching.WorkItem(t=t, level=li,
-                                             comp_idx=comp_idx, box=b),
-                           arr[c])
+                mine = lo <= g < hi
+                if mine or (giant_pred is not None
+                            and giant_pred(arr.shape[1:])):
+                    item = batching.WorkItem(t=t, level=li,
+                                             comp_idx=comp_idx, box=b)
+                    if mine and owned_out is not None:
+                        owned_out.add(item)
+                    yield item, arr[c]
                 g += 1
 
 
@@ -233,38 +268,68 @@ def _iter_prefetched(n_times: int, read_one, depth: int):
             yield t, cur
 
 
+def _t_bytes_global(meta: common.RunMeta, eng, t: int) -> int:
+    """Timestep t's padded batch bytes over every process's items, from
+    the headers alone, so every process computes the same number: under
+    ``giantmesh=global`` the ``globalcache`` admission decides whether the
+    giant items' gathers and re-transforms run, which are collectives.
+    It applies ``plan_batches``' pack and pad rules to the whole
+    timestep; one process's share is no larger, so the budget still
+    bounds each process's memory."""
+    counts: dict = {}
+    for lev in meta.dimensions[t]:
+        for d in lev:
+            counts[tuple(d)] = counts.get(tuple(d), 0) + len(meta.comp_idxs)
+    return sum(batching.dense_batch_nbytes(n, shape, eng.pack_factor(shape),
+                                           eng.pad_multiple_for(shape))
+               for shape, n in counts.items())
+
+
 def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
-                     have, timestep_batches, stats: dict) -> int:
+                     have, timestep_batches, stats: dict,
+                     crosshost: bool = False) -> int:
     """The two global-threshold passes; returns the bundle bytes closed.
 
     Pass 1 covers every item, also on resume: the histogram, and so the
     threshold, must be the one a fresh run derives.  Whole timesteps'
     coefficients stay in host RAM while the budget lasts (all or nothing
     per timestep, in order); past it, pass 1 fetches only the histogram
-    and pass 2 re-reads and re-transforms the timestep."""
+    and pass 2 re-reads and re-transforms the timestep.  ``crosshost``:
+    giant items are collective (``giantmesh=global`` over several
+    processes)."""
     n_times = len(meta.files)
     budget = (int(cfg.global_cache_bytes)
               if cfg.global_cache_bytes is not None
               else int(os.environ.get("WAVELET_TPU_GLOBALCACHE", 4 << 30)))
-    cache: dict = {}        # t -> coefficient ShapeBatches
+    cache: dict = {}        # t -> (coefficient ShapeBatches, owned set)
     cache_used = 0
     hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
-    for t, batches in _iter_prefetched(
+    for t, (batches, owned) in _iter_prefetched(
             n_times, lambda t: timestep_batches(t, False), cfg.prefetch):
-        t_bytes = sum(b.data.nbytes for b in batches)
+        t_bytes = (_t_bytes_global(meta, eng, t) if crosshost
+                   else sum(b.data.nbytes for b in batches))
         keep_t = cache_used + t_bytes <= budget
         cbs = []
         for batch in batches:
             t0 = time.perf_counter()
-            cb, h = eng.forward_hist_shapebatch(batch, fetch_coeffs=keep_t)
+            # a giant batch holds every process's giant items: each counts
+            # in the histogram on its owner only
+            cb, h = eng.forward_hist_shapebatch(
+                batch, hist_items=_owned_subset(batch.items, owned),
+                fetch_coeffs=keep_t)
             stats["device_seconds"] += time.perf_counter() - t0
             hist += h
             if keep_t:
                 cbs.append(cb)
                 stats["device_to_host_bytes"] += cb.data.nbytes
-        if keep_t and batches:
-            cache[t] = cbs
-            cache_used += t_bytes
+        if keep_t:
+            if batches:
+                cache[t] = (cbs, owned)
+            # crosshost: every process advances the budget alike, also
+            # over a timestep with none of its items, or a later giant
+            # timestep's admission would differ between processes
+            if batches or crosshost:
+                cache_used += t_bytes
     if cache or budget:
         log.info("globalcache: retained %d/%d timesteps' coefficients "
                  "(%.2f of %.2f GiB budget); pass 2 re-reads the rest",
@@ -286,18 +351,20 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
         return timestep_batches(t, False), False
 
     bundle_bytes = 0
-    for t, (batches, is_coeff) in _iter_prefetched(n_times, pass2_batches,
-                                                   cfg.prefetch):
-        def step(batch, is_coeff=is_coeff):
+    for t, ((batches, owned), is_coeff) in _iter_prefetched(
+            n_times, pass2_batches, cfg.prefetch):
+        def step(batch, is_coeff=is_coeff, owned=owned):
             cb = batch
             if not is_coeff:
                 cb = eng.forward_hist_shapebatch(batch)[0]
                 stats["device_to_host_bytes"] += cb.data.nbytes
             subset = None
-            if cfg.resume:
-                subset = [i for i, it in enumerate(cb.items)
-                          if not _exists(cfg.compressed_dir, it, have)]
-                stats["skipped"] += len(cb.items) - len(subset)
+            if cfg.resume or owned is not None:
+                mine = [i for i, it in enumerate(cb.items)
+                        if owned is None or it in owned]
+                subset = [i for i in mine if not (cfg.resume and _exists(
+                    cfg.compressed_dir, cb.items[i], have))]
+                stats["skipped"] += len(mine) - len(subset)
                 if len(subset) == len(cb.items):
                     subset = None
             t32 = np.full(len(cb.items), tval, np.float32)
@@ -316,13 +383,20 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
     pack -> free.  Peak host memory is bounded by one timestep (two with
     ``prefetch=1``), plus the ``globalcache`` budget in global mode."""
     eng = engine.CodecEngine(device=cfg.device, scales=cfg.scales, mesh=mesh,
-                             giant_box_bytes=cfg.giant_box_bytes)
+                             giant_box_bytes=cfg.giant_box_bytes,
+                             giant_mesh_mode=cfg.giant_mesh)
     packer = engine.HostPacker(payload=cfg.payload, codec=cfg.codec,
                                xz_preset=cfg.xz_preset,
                                xz_delta=cfg.xz_delta,
                                archive_format=cfg.archive)
     have = (_have_index(cfg.compressed_dir, cfg.archive)
             if cfg.resume else None)
+    # giant items are collective when giant boxes split across processes:
+    # every process computes them, the owner alone writes each
+    crosshost = (cfg.giant_mesh == "global"
+                 and mesh_lib.process_count() > 1)
+    giant_pred = ((lambda dims: eng.giant_ok(tuple(dims))) if crosshost
+                  else None)
 
     stats = _new_stats()
     ncomp = len(meta.comp_idxs)
@@ -332,35 +406,42 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
     sl = mesh_lib.process_local_slice(int(bases[-1]))
     lo, hi = sl.start, sl.stop
 
+    def has_giant(t):
+        return any(giant_pred(d) for lev in meta.dimensions[t] for d in lev)
+
     def timestep_batches(t, resume_filter: bool):
         """Read timestep t and plan this process's batches of it (data
-        freed with them); ``resume_filter`` drops the items already in
-        the archive.  A timestep with none of this process's items is not
-        read."""
-        if bases[t + 1] <= lo or bases[t] >= hi:
-            return []
+        freed with them) -> (batches, the WorkItems this process writes,
+        or None when it writes every item of its batches);
+        ``resume_filter`` drops the items already in the archive, but not
+        collective giant items.  A timestep with none of this process's
+        items is not read, unless its giant items are collective."""
+        if (bases[t + 1] <= lo or bases[t] >= hi) and not (
+                crosshost and has_giant(t)):
+            return [], None
         t0 = time.perf_counter()
         lv_boxes = [plotfile.read_level(meta.files[t], lev, meta.comp_idxs)
                     for lev in meta.levels]
+        owned = set() if crosshost else None
         items = list(_iter_timestep_items(meta, t, lv_boxes, lo, hi,
-                                          int(bases[t])))
+                                          int(bases[t]), giant_pred, owned))
         if resume_filter:
             kept = [p for p in items
-                    if not _exists(cfg.compressed_dir, p[0], have)]
+                    if (crosshost and giant_pred(p[1].shape))
+                    or not _exists(cfg.compressed_dir, p[0], have)]
             stats["skipped"] += len(items) - len(kept)
             items = kept
         batches = batching.plan_batches(items, pack_fn=eng.pack_factor,
                                         pad_fn=eng.pad_multiple_for)
         stats["read_seconds"] += time.perf_counter() - t0
-        return batches
+        return batches, owned
 
-    box_step = _box_step(eng, packer, cfg.keep, cfg.transfer, stats)
     if cfg.threshold_mode == "global":
         bundle_bytes = _compress_global(cfg, meta, eng, packer, have,
-                                        timestep_batches, stats)
+                                        timestep_batches, stats, crosshost)
     else:
         bundle_bytes = 0
-        for t, batches in _iter_prefetched(
+        for t, (batches, owned) in _iter_prefetched(
                 len(meta.files), lambda t: timestep_batches(t, cfg.resume),
                 cfg.prefetch):
             # timestep boundary: the link is quiescent here (the prefetch
@@ -368,7 +449,9 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
             # can re-run without measuring the pipeline's own transfers
             if cfg.transfer == "auto":
                 engine.CodecEngine.reprobe_link_if_stale()
-            _pack_overlapped(batches, box_step, cfg.compressed_dir, stats)
+            _pack_overlapped(batches, _box_step(eng, packer, cfg.keep,
+                                                cfg.transfer, stats, owned),
+                             cfg.compressed_dir, stats)
             # a finished timestep's bundle is closed right away: a crash
             # costs one timestep, like the per-file mode
             bundle_bytes += packer.close_bundles(t)

@@ -26,7 +26,10 @@ low band at ``1/2**p`` cells per axis on the same physical domain
 (``CodecEngine.preview_shapebatch``); it composes with partial retrieval.
 With ``mesh=`` the engine splits each bucket over the mesh (and giant
 boxes along X); in a multi-process run (``runtime/mesh``) each process
-regenerates its ``process_local_slice`` of the selected timesteps.
+regenerates its ``process_local_slice`` of the selected timesteps.  Under
+``giantmesh=global`` giant boxes split over every process's entries and
+their inverse is collective, so every process decodes every selected
+timestep and yields (writes) only its own.
 """
 
 from __future__ import annotations
@@ -184,7 +187,10 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
     one timestep at a time, holding only that timestep's boxes.  A
     ``stats`` dict, if given, accumulates ``host_to_device_bytes`` and
     the ``unpack_seconds`` / ``device_seconds`` of the two stages.  In a
-    multi-process run only the timesteps this process owns are yielded.
+    multi-process run only the timesteps this process owns are yielded
+    (under ``giantmesh=global`` every process still decodes the others:
+    the giant inverse is collective), so writing every yielded timestep
+    is race-free.
 
     Partial retrieval: ``cfg.min_time``/``cfg.max_time`` select timesteps
     by the same numeric-key rule as compression, ``cfg.components`` a
@@ -295,11 +301,21 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
                                archive_format=meta.get("archive", "files"))
     eng = engine.CodecEngine(device=cfg.device,
                              scales=meta.get("scales", 1), mesh=mesh,
-                             giant_box_bytes=cfg.giant_box_bytes)
+                             giant_box_bytes=cfg.giant_box_bytes,
+                             giant_mesh_mode=cfg.giant_mesh)
     # timesteps are independent outputs (one plotfile directory each), so
-    # each process of a multi-process run takes a contiguous slice
+    # each process of a multi-process run takes a contiguous slice; under
+    # giantmesh=global it decodes them all (the giant inverse is a
+    # collective) and yields only its slice
+    owned_times = None
     if mesh_lib.process_count() > 1:
-        sel_times = sel_times[mesh_lib.process_local_slice(len(sel_times))]
+        sl = mesh_lib.process_local_slice(len(sel_times))
+        if cfg.giant_mesh == "global":
+            owned_times = set(sel_times[sl])
+            if stats is not None:
+                stats["owned_times"] = owned_times
+        else:
+            sel_times = sel_times[sl]
     arena = batching.BufferArena()   # same shape buckets recur every step
     if stats is None:
         stats = {}
@@ -316,6 +332,11 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
         regen = _decompress_timestep(cfg, eng, packer, comp_idxs, t,
                                      num_levels, counts, dimensions, stats,
                                      arena=arena)
+        if owned_times is not None and t not in owned_times:
+            # decoded only to take part in the giant inverse; the gate is
+            # here so that no consumer of this iterator writes another
+            # process's timestep
+            continue
         name = os.path.join(cfg.out_dir, os.path.basename(info.files[t]))
         if preview:
             locs_t = [[tuple(v >> preview for v in loc)
@@ -382,6 +403,7 @@ def decompress_run(cfg: common.Config, mesh=None) -> dict:
             pending.result()
             stats["write_seconds"] += time.perf_counter() - t0
     log.info("Sucessfully wrote plotfiles.")
+    stats.pop("owned_times", None)   # the iterator's write gate, no stat
     stats.update({"decompress_seconds": ph.seconds, "times": n_times,
                   "levels": stats.pop("levels_selected", num_levels),
                   "boxes": n_boxes})

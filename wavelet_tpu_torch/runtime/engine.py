@@ -13,10 +13,15 @@ With ``mesh=`` every batch whose row count the mesh divides is split into
 ``mesh.size`` contiguous row chunks, each run by its kernel on its own
 mesh entry (the JAX engine's ``shard_map`` over the ``data`` axis); other
 batches run whole on the first entry, as the JAX package runs them
-unsharded.  A giant box (``giant_ok``: a mesh of two or more entries, at
-least ``giant_box_bytes``) is instead split along X over the mesh
-(``runtime/distributed``).  Results come back in item order either way,
-so archives do not depend on the mesh.
+unsharded.  A giant box (``giant_ok``: at least ``giant_box_bytes``, and a
+giant mesh of two or more entries) is instead split along X over the
+giant mesh (``runtime/distributed``): with ``giant_mesh_mode="global"``
+in a multi-process run, every process's entries
+(``runtime/mesh.global_mesh``: each process runs its own slabs and the
+slab pyramids are gathered over gloo); else ``mesh``; else, in a
+multi-process run, this process's share of its host's cards.  Results
+come back in item order either way, so archives do not depend on the
+mesh.
 
 Two kernel routes, the JAX package's A/B switch ``WAVELET_TPU_LAYOUT``
 (or ``CodecEngine(layout=)``):
@@ -66,6 +71,7 @@ import torch
 
 from wavelet_tpu_torch import native
 from wavelet_tpu_torch.core import haar, rle, threshold
+from wavelet_tpu_torch.core.threshold import resolve_signed_absmax
 from wavelet_tpu_torch.io import archive, bundle
 from wavelet_tpu_torch.runtime import distributed
 from wavelet_tpu_torch.runtime import mesh as mesh_lib
@@ -78,25 +84,6 @@ log = logging.getLogger("wavelet_tpu_torch")
 
 __all__ = ["CodecEngine", "HostPacker", "SparseCoeffs",
            "resolve_signed_absmax", "resolve_device"]
-
-
-def resolve_signed_absmax(maxv: np.ndarray, minv: np.ndarray,
-                          row_getter=None) -> np.ndarray:
-    """Signed largest-|.| value from per-box (max, min) pairs.
-
-    The signed extremum is whichever has the larger magnitude.  The only
-    ambiguous case is an exact tie ``min == -max != 0``, where the reference
-    picks whichever occurs *first* in flatten order (compressor.cpp:212-215);
-    those rare boxes are resolved from ``row_getter(i)``, which must return
-    item i's flat coefficients on the host.
-    """
-    signed = np.where(np.abs(maxv) >= np.abs(minv), maxv, minv)
-    tie = (minv == -maxv) & (maxv != 0)
-    if tie.any() and row_getter is not None:
-        for i in np.flatnonzero(tie):
-            row = np.asarray(row_getter(int(i)))
-            signed[i] = row[np.argmax(np.abs(row))]
-    return signed
 
 
 @dataclasses.dataclass
@@ -184,7 +171,11 @@ class CodecEngine:
     — bitwise the same results.  ``layout=None`` reads
     ``WAVELET_TPU_LAYOUT`` (``auto`` | ``interleaved`` | ``halves``).
     ``giant_box_bytes=None`` reads ``WAVELET_TPU_GIANTBOX`` (default 1
-    GiB; CLI ``giantbox=``)."""
+    GiB; CLI ``giantbox=``).  ``giant_mesh_mode="global"`` (CLI
+    ``giantmesh=global``) splits giant boxes over every process's entries;
+    in a multi-process run every process then builds its engine at the
+    same point (the global mesh is counted over gloo) and takes part in
+    every giant box's transform."""
 
     # one box must fit the JAX halves kernels' VMEM block: the bound of the
     # halves route's packed shapes, kept so both packages pack alike
@@ -192,7 +183,8 @@ class CodecEngine:
 
     def __init__(self, device="cuda", scales: int = 1,
                  layout: str | None = None, mesh=None,
-                 giant_box_bytes: int | None = None):
+                 giant_box_bytes: int | None = None,
+                 giant_mesh_mode: str = "local"):
         self.device = resolve_device(device)
         if mesh is not None:
             if any(d.type != self.device.type for d in mesh.devices):
@@ -211,6 +203,45 @@ class CodecEngine:
             giant_box_bytes = int(os.environ.get("WAVELET_TPU_GIANTBOX",
                                                  1 << 30))
         self.giant_box_bytes = int(giant_box_bytes)
+        if giant_mesh_mode not in ("local", "global"):
+            raise ValueError(f"unknown giant mesh mode {giant_mesh_mode!r} "
+                             "(local|global)")
+        self._global_giant_mesh = None
+        self._local_giant_mesh = None     # False: looked, none
+        if giant_mesh_mode == "global" and mesh_lib.process_count() > 1:
+            self._global_giant_mesh = mesh_lib.global_mesh(
+                mesh if mesh is not None
+                else mesh_lib.DeviceMesh([self.device]))
+            log.info("giantmesh=global: giant boxes split over all %d mesh "
+                     "entries across %d processes; every process takes part "
+                     "in each giant box's transform and gloo gather",
+                     self._global_giant_mesh.size,
+                     mesh_lib.process_count())
+
+    def _giant_mesh(self):
+        """The mesh giant boxes split over, or None: the global mesh
+        (``giant_mesh_mode="global"`` in a multi-process run); else
+        ``mesh`` if it has two or more entries; else, in a multi-process
+        run on CUDA, this process's share of its host's cards (the JAX
+        package's ``jax.local_devices()``): ``local_cards(K)`` with K =
+        cards on the host // processes on the host, when K >= 2."""
+        if self._global_giant_mesh is not None:
+            return self._global_giant_mesh
+        if self.mesh is not None and self.mesh.size > 1:
+            return self.mesh
+        if self._local_giant_mesh is None:
+            self._local_giant_mesh = False
+            if mesh_lib.process_count() > 1 and self.device.type == "cuda":
+                k = (torch.cuda.device_count()
+                     // mesh_lib.local_process_count())
+                if k > 1:
+                    self._local_giant_mesh = mesh_lib.data_mesh(
+                        mesh_lib.local_cards(k))
+                    log.info("Giant boxes split over this process's cards "
+                             "%s (no devices=: %d cards per process on this "
+                             "host)", [str(d) for d in
+                                       self._local_giant_mesh.devices], k)
+        return self._local_giant_mesh or None
 
     def eff_scales(self, dims) -> int:
         """Deepest pyramid this box shape supports, capped at the requested
@@ -232,13 +263,13 @@ class CodecEngine:
                 and int(np.prod(dims)) * 4 <= self._PALLAS_MAX_BLOCK_BYTES)
 
     def giant_ok(self, dims) -> bool:
-        """Whether boxes of this shape are split along X over the mesh
-        (``runtime/distributed``): a mesh of at least two entries, a box
-        of at least ``giant_box_bytes``, every dim divisible by
-        ``2**max(1, eff)`` and X by ``mesh.size * 2**eff``, so each slab
-        holds whole pairs at every scale (the JAX package's gate)."""
-        m = self.mesh
-        if m is None or m.size < 2:
+        """Whether boxes of this shape are split along X over the giant
+        mesh (``runtime/distributed``): a giant mesh (:meth:`_giant_mesh`),
+        a box of at least ``giant_box_bytes``, every dim divisible by
+        ``2**max(1, eff)`` and X by ``size * 2**eff``, so each slab holds
+        whole pairs at every scale (the JAX package's gate)."""
+        m = self._giant_mesh()
+        if m is None:
             return False
         if int(np.prod(dims)) * 4 < self.giant_box_bytes:
             return False
@@ -422,17 +453,14 @@ class CodecEngine:
         """-> ``[(device, lo, hi)]``: the mesh's contiguous row chunks of an
         ``n``-row batch, or the whole batch on the first device when there
         is no mesh or the mesh does not divide ``n``."""
-        m = self.mesh
-        if m is None or m.size == 1 or n % m.size:
-            return [(self.device, 0, n)]
-        r = n // m.size
-        return [(d, k * r, (k + 1) * r) for k, d in enumerate(m.devices)]
+        return mesh_lib.batch_sharding(n, self.mesh, self.device)
 
     def _map(self, fn, data: np.ndarray) -> list:
-        """``fn`` on each row chunk of ``data``, put on the chunk's device;
-        every chunk is launched before any result is read."""
-        return [fn(self._put(data[lo:hi], dev))
-                for dev, lo, hi in self._row_chunks(data.shape[0])]
+        """``fn`` on each row chunk of ``data``, put on the chunk's device
+        (``mesh.shard_batch``); every chunk is launched before any result
+        is read."""
+        return [fn(x) for x in mesh_lib.shard_batch(data, self.mesh,
+                                                    self.device)]
 
     @classmethod
     def _cat(cls, parts) -> np.ndarray:
@@ -474,6 +502,12 @@ class CodecEngine:
         flat, signed = self.forward_signed_batch(data)
         return flat, threshold.exact_threshold32(signed, keep)
 
+    def compress_batch(self, data: np.ndarray, keep: float):
+        """-> (coeffs f32 [N, XYZ], mask bool [N, XYZ]) as NumPy arrays:
+        :meth:`compress_batch_raw` with the keep-mask ``|c| > t32``."""
+        flat, t32 = self.compress_batch_raw(data, keep)
+        return flat, np.abs(flat) > t32[:, None]
+
     def compress_shapebatch(self, batch: ShapeBatch, keep: float):
         """-> (coefficient ShapeBatch of the same geometry, t32 f32 per
         item incl. padding slots)."""
@@ -490,19 +524,21 @@ class CodecEngine:
 
     def _compress_giant(self, batch: ShapeBatch, keep: float):
         """Giant-box compress: each item is one box split along X over the
-        mesh (``distributed.sharded_box_forward``); the coefficients, ties
-        and thresholds are the unsplit box's, so the archive is too."""
+        giant mesh (``distributed.sharded_box_forward``); the coefficients,
+        ties and thresholds are the unsplit box's, so the archive is too."""
         eff = self.eff_scales(batch.shape)
         n = batch.data.shape[0]
+        gm = self._giant_mesh()
         log.info("Giant box path: %d box(es) of %s sharding X over %d "
-                 "devices (zero collectives)", n, batch.shape,
-                 self.mesh.size)
+                 "devices (%s)", n, batch.shape, gm.size,
+                 "slabs gathered over gloo" if gm.spans_processes
+                 else "zero collectives")
         coeffs = np.empty_like(batch.data)
         maxs = np.empty(n, np.float32)
         mins = np.empty(n, np.float32)
         for i in range(n):
             coeffs[i], maxs[i], mins[i] = distributed.sharded_box_forward(
-                self.mesh, batch.data[i], eff)
+                gm, batch.data[i], eff)
         signed = resolve_signed_absmax(
             maxs, mins, row_getter=lambda i: coeffs[i].reshape(-1))
         return (dataclasses.replace(batch, data=coeffs),
@@ -615,14 +651,20 @@ class CodecEngine:
             return None, hist
         return self._cat([c for c, _ in parts]), hist
 
-    def forward_hist_shapebatch(self, batch: ShapeBatch,
+    def forward_hist_shapebatch(self, batch: ShapeBatch, hist_items=None,
                                 fetch_coeffs: bool = True):
         """Global-threshold pass: -> (coefficient ShapeBatch, int64
         histogram of the real items).  ``fetch_coeffs=False`` returns
-        ``(None, hist)`` and moves no coefficient to the host."""
+        ``(None, hist)`` and moves no coefficient to the host.
+
+        ``hist_items`` (giant batches split across processes): the item
+        indices whose histogram counts.  Every process transforms every
+        giant item (each transform is a collective), so only each item's
+        owner may count it, or the summed histogram would count giant
+        coefficients once per process."""
         self._check_batch(batch)
         if self.giant_ok(batch.shape):
-            return self._forward_hist_giant(batch, fetch_coeffs)
+            return self._forward_hist_giant(batch, hist_items, fetch_coeffs)
         c, hist = self._forward_hist(batch.data, batch.pack, fetch_coeffs)
         # padding slots are zero boxes: take their coefficients out of the
         # zero bin so the quantile counts real coefficients only (items,
@@ -634,22 +676,27 @@ class CodecEngine:
             return None, hist
         return dataclasses.replace(batch, data=c), hist
 
-    def _forward_hist_giant(self, batch: ShapeBatch, fetch_coeffs: bool):
+    def _forward_hist_giant(self, batch: ShapeBatch, hist_items,
+                            fetch_coeffs: bool):
         """The giant branch of :meth:`forward_hist_shapebatch`: K6 per
         X-slab, the box's histogram the sum of its slabs'.  Giant batches
         are never padded."""
         eff = self.eff_scales(batch.shape)
+        gm = self._giant_mesh()
         # phase-neutral wording: this runs in the pass-1 histogram stream
         # and in pass-2 re-reads of uncached timesteps
         log.info("Giant box path (global threshold): %d box(es) of %s "
                  "sharding X over %d devices", batch.data.shape[0],
-                 batch.shape, self.mesh.size)
+                 batch.shape, gm.size)
         coeffs = np.empty_like(batch.data) if fetch_coeffs else None
         hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
         for i in range(batch.data.shape[0]):
+            # every process launches the histogram's all-reduce of every
+            # giant item; ownership gates only whether it counts
             c, h = distributed.sharded_box_forward_hist(
-                self.mesh, batch.data[i], eff, fetch_coeffs)
-            hist += h
+                gm, batch.data[i], eff, fetch_coeffs)
+            if hist_items is None or i in hist_items:
+                hist += h
             if fetch_coeffs:
                 coeffs[i] = c
         if not fetch_coeffs:
@@ -690,12 +737,13 @@ class CodecEngine:
 
     def _decompress_giant(self, coeff_batch: ShapeBatch) -> ShapeBatch:
         """Inverse of :meth:`_compress_giant`: per box, the pyramid split
-        into X-slab pyramids, each inverted on its mesh entry."""
+        into X-slab pyramids, each inverted on its giant mesh entry."""
         eff = self.eff_scales(coeff_batch.shape)
+        gm = self._giant_mesh()
         out = np.empty_like(coeff_batch.data)
         for i in range(coeff_batch.data.shape[0]):
             out[i] = distributed.sharded_box_inverse(
-                self.mesh, coeff_batch.data[i], eff)
+                gm, coeff_batch.data[i], eff)
         return dataclasses.replace(coeff_batch, data=out)
 
     def preview_shapebatch(self, batch: ShapeBatch, depth: int):
