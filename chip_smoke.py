@@ -84,8 +84,17 @@ Phases (any failure exits non-zero before the last line):
    child printing its launch counts, gloo bytes and wall.  (l) The
    collective steps (parity, global, train) over the two-entry
    mesh at [160, 64, 64, 64] against eight CPU entries, bitwise (the RMSE
-   to rtol 1e-6), then ``dryrun_multichip(2)`` on the card.  The wall of
-   each of (h)-(l) is printed on its own line.
+   to rtol 1e-6), then ``dryrun_multichip(2)`` on the card.  (m) The
+   measurement programs: ``python -m wavelet_tpu_torch.bench``'s main at
+   [128, 64^3] with 3 reps (one JSON line, every stage with a rep used and
+   none implausible, K1-K5, K8 and K9 launched; its round-trip RMSE and
+   kept fraction at n = 16 equal on cuda and cpu), the scaling bench over
+   [cuda:0, cuda:0] at [16, 64^3], the e2e bench on 32 boxes of 64^3
+   (its archives equal on cuda and cpu but for the sidecar that names the
+   dataset's directory) and baseline config 6 on 16 boxes; its launches,
+   which follow the timing loops' reps, are checked there and are not
+   summed into the kernels line.  The wall of each of (h)-(m) is printed
+   on its own line.
 6. Timing: kernel and plain-version times with CUDA events at the main
    path's 64^3 batch (the compaction on its coefficient rows; the packed
    kernels on the same boxes packed two to a row, and at P = 64 beside
@@ -1646,6 +1655,129 @@ def run_steps(data_dir: str) -> dict:
     return out
 
 
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: -> (result, the
+    output's lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    return res, buf.getvalue().splitlines()
+
+
+# (m): the stages of the device-stage bench that report reps, and the
+# kernels its run must launch
+BENCH_STAGES = ("forward", "forward_packed", "mask", "inverse",
+                "inverse_packed", "sparse_compact_stage",
+                "sparse_scatter_stage")
+BENCH_KERNELS = ("haar_forward", "haar_inverse", "packed_forward",
+                 "packed_inverse", "pyramid_forward", "compact_count",
+                 "compact_scatter")
+BENCH_SMALL = ["--n", "16", "--reps", "1", "--iters", "1", "--large-n", "1",
+               "--large-dim", "64"]
+
+
+def run_measurement_programs() -> dict:
+    """(m): the port's measurement programs on the card.  The device-stage
+    bench (``python -m wavelet_tpu_torch.bench``'s main) at [128, 64^3]
+    with 3 reps: one JSON line, every stage with a rep used and none
+    implausible, K1-K5, K8 and K9 launched; its round-trip RMSE and kept
+    fraction at n = 16 equal on cuda and cpu.  The scaling bench over
+    [cuda:0, cuda:0] at [16, 64^3]; the e2e bench on 32 boxes of 64^3, its
+    archives equal on cuda and cpu; baseline config 6 on 16 boxes."""
+    import torch
+
+    from wavelet_tpu_torch import bench
+    from wavelet_tpu_torch.scripts import (bench_e2e, measure_baseline,
+                                           scaling_bench)
+
+    out = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    rc, lines = _quiet(bench.main, ["--reps", "3"])
+    launches = _launches()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"(m) bench printed {lines!r}, exit {rc}")
+    r = json.loads(lines[0])
+    ex = r["extra"]
+    for k in BENCH_STAGES:
+        if ex[k]["reps_used"] < 1 or ex[k].get("all_reps_implausible"):
+            raise AssertionError(f"(m) bench stage {k}: {ex[k]}")
+    for k in ("fused_spread", "plain_spread"):
+        if ex["large_box_128"][k]["reps_used"] < 1:
+            raise AssertionError(f"(m) bench large box: {ex['large_box_128']}")
+    _check_counts("m, bench", launches, dict.fromkeys(BENCH_KERNELS, 1))
+    if ex.pop("launches") != launches:
+        raise AssertionError(f"(m) bench reports launches {r}, the "
+                             f"counters {launches}")
+    if ex["platform"] != torch.cuda.get_device_name(0) or not ex["name"]:
+        raise AssertionError(f"(m) bench platform {ex['platform']!r}")
+    out["bench"] = {"s": time.perf_counter() - t0, "line": r,
+                    "launches": launches}
+    quality = {}
+    for dev in ("cuda", "cpu"):
+        _reset_launches()
+        rc, lines = _quiet(bench.main, ["--device", dev, *BENCH_SMALL])
+        q = json.loads(lines[-1])["extra"]
+        quality[dev] = {k: q[k] for k in ("roundtrip_rmse",
+                                          "kept_coeff_fraction")}
+        quality[f"{dev}_launches"] = _launches()
+    if quality["cuda"] != quality["cpu"]:
+        raise AssertionError(f"(m) bench quality {quality}")
+    quality["launches"] = quality.pop("cuda_launches")
+    _expect_launches("m, bench cpu", quality.pop("cpu_launches"), {})
+    out["bench_quality_n16"] = quality
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    sc, _ = _quiet(scaling_bench.main, [
+        "--repeat", "--devices", "2", "--dim", "64", "--per-device-boxes",
+        "8", "--iters", "5", "--out", os.path.join(WORK, "scaling.json")])
+    if sorted(sc["meshes"]) != ["1", "2"] or sc["distinct_devices"] != 1:
+        raise AssertionError(f"(m) scaling {sc}")
+    out["scaling"] = {"s": time.perf_counter() - t0,
+                      "meshes": sc["meshes"], "launches": _launches()}
+
+    e2e = {}
+    for dev in ("cuda", "cpu"):
+        _reset_launches()
+        t0 = time.perf_counter()
+        res, _ = _quiet(bench_e2e.main, [
+            "--device", dev, "--root", WORK, "--out",
+            os.path.join(WORK, f"e2e_{dev}.json"), "--configs", "cube64",
+            "--boxes", "32", "--timesteps", "1", "--keep-files"])
+        e2e[dev] = {"s": time.perf_counter() - t0, "row": res["cube64"],
+                    "launches": _launches(), "run_dir": res["run_dir"]}
+    for arch in ("arch_c", "arch_s"):
+        # runinfo.raw names the dataset's directory, which differs, and
+        # wtc-meta.json holds its checksum
+        trees = [{k: v for k, v in _tree(os.path.join(
+            e2e[dev]["run_dir"], "cube64", arch)).items()
+            if k not in ("runinfo.raw", "wtc-meta.json")}
+            for dev in ("cuda", "cpu")]
+        if not any(k.endswith(".wtb") for k in trees[0]) or \
+                trees[0] != trees[1]:
+            raise AssertionError(f"(m) e2e {arch} differs on cuda and cpu")
+    _expect_launches("m, e2e cpu", e2e["cpu"].pop("launches"), {})
+    out["e2e"] = e2e
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    mb, _ = _quiet(measure_baseline.main, [
+        "--only", "6", "--scale", "0.25", "--work",
+        os.path.join(WORK, "baseline"), "--out",
+        os.path.join(WORK, "measured.json")])
+    rows = mb["config6_e2e_sparse_regime"]
+    if (rows["sparse"]["boxes"] != 16 or rows["sparse"]["host_to_device_bytes"]
+            >= rows["dense"]["host_to_device_bytes"]):
+        raise AssertionError(f"(m) baseline config 6 {rows}")
+    out["baseline_config6"] = {"s": time.perf_counter() - t0, "rows": rows,
+                               "launches": _launches()}
+    return out
+
+
 def _time_ms(fn, x, reps: int = 7, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
     calls, by CUDA events."""
@@ -1975,6 +2107,15 @@ def main() -> int:
         print(f"wall ({name}): {secs:.1f} s")
         print(f"end to end ({name}, {what}; {card}; {secs:.1f} s): "
               + json.dumps(res))
+    # (m)'s launches follow its timing loops' reps and iterations: they are
+    # checked in (m) itself and left out of the kernels line
+    t0 = time.perf_counter()
+    res = run_measurement_programs()
+    secs = time.perf_counter() - t0
+    print(f"wall (m): {secs:.1f} s")
+    print(f"end to end (m, the measurement programs: bench at [128, 64^3], "
+          f"scaling over [cuda:0, cuda:0], e2e on 32 boxes, baseline config "
+          f"6; {card}; {secs:.1f} s): " + json.dumps(res))
     timing = phase_timing(device, rows)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="

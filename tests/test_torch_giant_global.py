@@ -12,9 +12,10 @@ one-process ``wavelet_tpu`` run of the same seeded plotfiles
 one-process runs): box mode with a resumed rerun and ``-d``, global
 thresholds with a ``globalcache`` that holds one of two timesteps, and
 more processes than timesteps.  The split transform itself is held
-bitwise to the one-process split in two gloo processes, and unequal
-entry counts are refused.  Every coordinated pair runs under one
-deadline that kills both (``tests/conftest.drain_procs``).
+bitwise to the one-process split in two gloo processes, unequal entry
+counts are refused, and a group left up is torn down at exit.  Every
+coordinated pair runs under one deadline that kills both
+(``tests/conftest.drain_procs``).
 
 The card rules run on monkeypatched host names and card counts: a
 process's local rank is the number of lower ranks on its host;
@@ -285,6 +286,38 @@ def test_unequal_entry_counts_are_refused():
     for out in outs:
         assert "refused: giantmesh=global needs the same number" in out, out
         assert "[1, 2]" in out
+
+
+_NO_TEARDOWN = """
+import sys
+from wavelet_tpu_torch.runtime import mesh
+mesh.init_distributed(sys.argv[1], 2, int(sys.argv[2]))
+print("joined", mesh.process_index(), mesh.process_count())
+"""
+
+
+def test_a_group_left_up_is_torn_down_at_exit():
+    """Both processes join and exit without tearing the group down: the
+    teardown ``init_distributed`` registers at exit must end each cleanly
+    (a live ProcessGroupGloo at interpreter shutdown can abort with
+    ``terminate called without an active exception``)."""
+    for _ in range(5):
+        outs = _run_pair([], script=_NO_TEARDOWN)
+        for pid, out in enumerate(outs):
+            assert f"joined {pid} 2" in out, out[-3000:]
+            assert "terminate called" not in out, out[-3000:]
+
+
+def test_leave_distributed_twice_and_outside_a_group_does_nothing():
+    import torch.distributed as dist
+
+    mesh_lib.leave_distributed()              # no group: nothing to do
+    mesh_lib.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    assert dist.is_initialized() and mesh_lib._teardown_registered
+    mesh_lib.leave_distributed()
+    assert not dist.is_initialized()
+    mesh_lib.leave_distributed()              # the exit-time second call
+    assert not dist.is_initialized()
 
 
 def test_global_mesh_of_one_process_is_its_own_mesh():

@@ -8,6 +8,8 @@ global thresholds on a 2-scale pyramid, decompressed with
 ``transfer=sparse``, then box and global thresholds on the lane-packed
 route, ``WAVELET_TPU_LAYOUT=halves``), ``-estimate`` (scratch and
 ``fastestimate=1`` with ``devicemetrics=1``), ``-check`` and ``-info``,
+imports and runs the measurement programs (``bench``, ``scripts.bench_e2e``,
+``scripts.scaling_bench``, ``scripts.measure_baseline``) at a tiny size,
 and reports every module of jax or of ``wavelet_tpu`` that got loaded.  A source scan refuses any import of either in the port,
 ``chip_smoke.py`` and ``profile_runs.py``.
 """
@@ -71,6 +73,15 @@ assert cli.main([f"compresseddir={root}/arch_h/", "-check"]) == 0
 assert cli.main([f"compresseddir={root}/arch_h/", "-info"]) == 0
 from wavelet_tpu_torch import entry
 entry.dryrun_multichip(2, device="cpu")
+# the measurement programs
+from wavelet_tpu_torch import bench
+from wavelet_tpu_torch.scripts import (bench_e2e, measure_baseline,
+                                       scaling_bench)
+r = bench.measure("cpu", n=2, dim=8, reps=1, iters=1, large_n=1, large_dim=8)
+assert r["extra"]["roundtrip_rmse"] >= 0
+scaling_bench.run("cpu", 2, per_device_boxes=1, dim=4, iters=1, reps=1)
+bench_e2e.smooth_spiky_boxes(1, 8, 0)
+measure_baseline.spiky_plotfile(os.path.join(root, "spiky"), 1, 8)
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and (m.split(".")[0] in ("jax", "jaxlib",
                                                             "wavelet_tpu")))

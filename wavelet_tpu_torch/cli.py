@@ -328,10 +328,9 @@ def _mesh(device: str, n_dev: int):
 
 def _leave_group() -> None:
     """Tear down the process group, if this run joined one."""
-    import torch.distributed as dist
+    from wavelet_tpu_torch.runtime import mesh as mesh_lib
 
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+    mesh_lib.leave_distributed()
 
 
 if __name__ == "__main__":

@@ -19,11 +19,13 @@ learns each rank's host name once, so a process knows its *local rank*
 ``local rank * N + i`` (:func:`local_cards`), and owns
 :func:`process_local_slice` of the work items.  A :class:`GlobalMesh`
 (:func:`global_mesh`) strings every process's entries together for
-giant boxes split across processes (``giantmesh=global``).
+giant boxes split across processes (``giantmesh=global``).  A joined
+group is torn down at exit (:func:`leave_distributed`).
 """
 
 from __future__ import annotations
 
+import atexit
 import socket
 
 import numpy as np
@@ -31,16 +33,18 @@ import torch
 
 __all__ = ["DATA_AXIS", "DeviceMesh", "GlobalMesh", "data_mesh",
            "global_mesh", "batch_sharding", "shard_batch",
-           "init_distributed", "process_index", "process_count",
-           "process_local_slice", "local_rank", "local_process_count",
-           "local_cuda_index", "local_cards", "process_group",
-           "resolve_device"]
+           "init_distributed", "leave_distributed", "process_index",
+           "process_count", "process_local_slice", "local_rank",
+           "local_process_count", "local_cuda_index", "local_cards",
+           "process_group", "resolve_device"]
 
 DATA_AXIS = "data"
 
 # the host name of each rank of the current group, in rank order
 # (init_distributed); empty outside a group
 _hosts: list = []
+# whether init_distributed has registered leave_distributed to run at exit
+_teardown_registered = False
 
 
 def resolve_device(device) -> torch.device:
@@ -189,6 +193,7 @@ def init_distributed(coordinator: str | None, num_processes: int | None,
     a missing address is an error, not a silently different group."""
     import torch.distributed as dist
 
+    global _teardown_registered
     if coordinator is None:
         raise ValueError(
             "num_processes/process_id require a coordinator address "
@@ -202,9 +207,25 @@ def init_distributed(coordinator: str | None, num_processes: int | None,
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
                             world_size=int(num_processes),
                             rank=int(process_id))
+    if not _teardown_registered:
+        # a ProcessGroupGloo still alive at interpreter shutdown can abort
+        # in its destructor ("terminate called without an active
+        # exception"); jax.distributed.initialize registers its shutdown
+        # the same way
+        atexit.register(leave_distributed)
+        _teardown_registered = True
     hosts = [None] * int(num_processes)
     dist.all_gather_object(hosts, socket.gethostname())
     _hosts[:] = hosts
+
+
+def leave_distributed() -> None:
+    """Tear down the process group if one is up; a second call, or a call
+    outside a group, does nothing.  :func:`init_distributed` registers it
+    to run at exit."""
+    d = _dist()
+    if d is not None:
+        d.destroy_process_group()
 
 
 def process_index() -> int:
