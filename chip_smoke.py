@@ -93,7 +93,19 @@ Phases (any failure exits non-zero before the last line):
    (its archives equal on cuda and cpu but for the sidecar that names the
    dataset's directory) and baseline config 6 on 16 boxes; its launches,
    which follow the timing loops' reps, are checked there and are not
-   summed into the kernels line.  The wall of each of (h)-(m) is printed
+   summed into the kernels line.  (n) The host benches at small size:
+   ``scripts.bench_ragged --scale 0.01 --in-process`` (all 44 shapes,
+   both levels, two timesteps) on both layouts with ``--compare-cpu``,
+   archives and plotfiles byte-identical to the ``device=cpu`` run's, with
+   K1/K2 launched on every bucket of the default route and K3/K4 on every
+   bucket the halves route packs (K1/K2 on the others), each -c and -d
+   cold and warm; ``scripts.bench_quality`` with its 32-box subset's
+   metrics equal on cuda and cpu; ``scripts.fuzz_campaign --trials-per
+   50`` with no backend disagreement;
+   ``scripts.bench_host_codec`` and ``scripts.bench_plotfile_io`` at small
+   sizes, each JSON naming this card and the host codec's device rate
+   measured on it.  (n)'s launches, like (m)'s, are checked in (n) and
+   left out of the kernels line.  The wall of each of (h)-(n) is printed
    on its own line.
 6. Timing: kernel and plain-version times with CUDA events at the main
    path's 64^3 batch (the compaction on its coefficient rows; the packed
@@ -1778,6 +1790,122 @@ def run_measurement_programs() -> dict:
     return out
 
 
+# (n): the host benches at small size.  The ragged run's --scale keeps all
+# 44 shapes of both levels (the largest counts cut to a few boxes, ~13 MiB
+# of f32 a timestep), and its twelve CLI calls run in this process: a
+# fresh process took 7.7-10.5 s to import torch on one H100 host, which
+# put (n) at 166 s.  The quality subset is the JAX script's 32 boxes, the
+# at-scale run four
+RAGGED_SCALE = "0.01"
+QUALITY_BOXES = "32"
+FUZZ_TRIALS = 50
+RAGGED_ROWS = ("compress_cold", "compress_warm", "decompress_cold",
+               "decompress_warm")
+
+
+def _ragged(layout: str) -> dict:
+    """(n): ``bench_ragged`` on one layout with ``--compare-cpu`` (every CLI
+    call in this process): the card's archive and plotfiles equal the
+    ``device=cpu`` run's, and each -c / -d row launched the route's
+    kernels on every bucket of both timesteps (K1/K2 on ``auto``; K3/K4 on
+    every bucket ``halves`` packs, K1/K2 on the others)."""
+    from wavelet_tpu_torch.scripts import bench_ragged
+
+    path = os.path.join(WORK, f"ragged_{layout}.json")
+    t0 = time.perf_counter()
+    rc, _ = _quiet(bench_ragged.main, [
+        "--scale", RAGGED_SCALE, "--layout", layout, "--in-process",
+        "--root", WORK, "--out", path])
+    secs = time.perf_counter() - t0
+    with open(path) as f:
+        r = json.load(f)
+    cmp = r["compare_cpu"]
+    if rc != 0 or not (cmp["archive"]["identical"]
+                       and cmp["plotfiles"]["identical"]):
+        raise AssertionError(f"(n) ragged {layout}: exit {rc}, {cmp}")
+    n_t = r["timesteps"]
+    packed = r["buckets"]["packed"] * n_t
+    plain = r["buckets"]["per_timestep"] * n_t - packed
+    if r["n_shapes"] != 44 or (layout == "halves") != (packed > 0):
+        raise AssertionError(f"(n) ragged {layout}: buckets {r['buckets']}")
+    fwd, inv = (("packed_forward", "haar_forward"),
+                ("packed_inverse", "haar_inverse"))
+    for row in RAGGED_ROWS:
+        k_packed, k_plain = fwd if row.startswith("compress") else inv
+        _check_counts(f"n, ragged {layout} {row}", r[row]["launches"],
+                      {k_packed: packed, k_plain: plain})
+    return {"s": secs, "input_bytes": r["input_bytes"],
+            "buckets": r["buckets"],
+            "route_slot_waste": r["route_padding"]["slot_waste_fraction"],
+            "compare_cpu": cmp,
+            **{row: {k: r[row][k] for k in ("wall_seconds", "cli_seconds",
+                                            "library_built", "launches")}
+               for row in RAGGED_ROWS}}
+
+
+def run_host_benches(kind: str) -> dict:
+    """(n): the host benches on the card at small size.  ``bench_ragged``
+    on both layouts (:func:`_ragged`); ``bench_quality`` at 32 boxes, the
+    card's metrics equal to the CPU's; ``fuzz_campaign`` at 50 trials a
+    surface with no backend disagreement; ``bench_host_codec`` and
+    ``bench_plotfile_io`` at small sizes, each JSON naming this card and
+    the host codec's device rate measured on it."""
+    from wavelet_tpu_torch.scripts import (bench_host_codec,
+                                           bench_plotfile_io, bench_quality,
+                                           fuzz_campaign)
+
+    out = {f"ragged_{layout}": _ragged(layout)
+           for layout in ("auto", "halves")}
+    runs = {
+        "quality": (bench_quality, ["--n-boxes", "4",
+                                    "--subset-boxes", QUALITY_BOXES]),
+        "fuzz": (fuzz_campaign, ["--trials-per", str(FUZZ_TRIALS)]),
+        "host_codec": (bench_host_codec, ["--n-items", "16", "--dim", "32"]),
+        "plotfile_io": (bench_plotfile_io, ["--n-scale", "0.0625"]),
+    }
+    res = {}
+    for name, (mod, args) in runs.items():
+        path = os.path.join(WORK, f"{name}.json")
+        _reset_launches()
+        t0 = time.perf_counter()
+        rc, _ = _quiet(mod.main, [*args, "--root", WORK, "--out", path])
+        out[name] = {"s": time.perf_counter() - t0, "launches": _launches()}
+        with open(path) as f:
+            res[name] = json.load(f)
+        if rc != 0 or res[name]["card"]["name"] != kind:
+            raise AssertionError(f"(n) {name}: exit {rc}, card "
+                                 f"{res[name]['card']}")
+    q = res["quality"]["subset_cuda_vs_cpu"]
+    if not q["all_metrics_identical"]:
+        raise AssertionError(f"(n) quality: cuda and cpu differ: {q}")
+    _check_counts("n, quality", out["quality"]["launches"],
+                  {"haar_forward": 1, "forward_hist": 1, "haar_inverse": 1})
+    out["quality"]["box_keep_sweep"] = q["cuda"]["box_keep_sweep"]
+    f = res["fuzz"]
+    if f["backend_disagreements"] or f["total_mutations"] != FUZZ_TRIALS * 13:
+        raise AssertionError(f"(n) fuzz: {f}")
+    _check_counts("n, fuzz", out["fuzz"]["launches"], {"haar_forward": 1})
+    out["fuzz"].update(surfaces=f["surfaces"], native=f["native"])
+    an = res["host_codec"]["analysis"]
+    if not (an["device_compress_gbps"] > 0
+            and an["device_card"]["name"] == kind
+            and res["host_codec"]["pipeline_e2e"]["device"] == "cuda:0"):
+        raise AssertionError(f"(n) host codec: {an}")
+    _check_counts("n, host codec", out["host_codec"]["launches"],
+                  {"haar_forward": 1, "pyramid_forward": 1})
+    out["host_codec"]["analysis"] = {
+        k: an.get(k) for k in ("device_compress_gbps",
+                               "device_scatter_stage_gbps",
+                               "cores_to_match_device_rate",
+                               "e2e_gbps_with_this_host")}
+    out["host_codec"]["native"] = res["host_codec"]["native"]
+    for name, case in res["plotfile_io"]["cases"].items():
+        if case["read_f32"]["f32_bytes"] != case["write_f32"]["src_bytes"]:
+            raise AssertionError(f"(n) plotfile io {name}: {case}")
+    out["plotfile_io"]["cases"] = sorted(res["plotfile_io"]["cases"])
+    return out
+
+
 def _time_ms(fn, x, reps: int = 7, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
     calls, by CUDA events."""
@@ -2116,6 +2244,16 @@ def main() -> int:
     print(f"end to end (m, the measurement programs: bench at [128, 64^3], "
           f"scaling over [cuda:0, cuda:0], e2e on 32 boxes, baseline config "
           f"6; {card}; {secs:.1f} s): " + json.dumps(res))
+    # (n)'s launches, like (m)'s, are checked in (n) and left out of the
+    # kernels line
+    t0 = time.perf_counter()
+    res = run_host_benches(kind)
+    secs = time.perf_counter() - t0
+    print(f"wall (n): {secs:.1f} s")
+    print(f"end to end (n, the host benches: ragged at --scale "
+          f"{RAGGED_SCALE} on both layouts against device=cpu, quality at "
+          f"{QUALITY_BOXES} boxes, fuzz at {FUZZ_TRIALS} trials, host codec, "
+          f"plotfile I/O; {card}; {secs:.1f} s): " + json.dumps(res))
     timing = phase_timing(device, rows)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="

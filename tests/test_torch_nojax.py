@@ -9,8 +9,11 @@ global thresholds on a 2-scale pyramid, decompressed with
 route, ``WAVELET_TPU_LAYOUT=halves``), ``-estimate`` (scratch and
 ``fastestimate=1`` with ``devicemetrics=1``), ``-check`` and ``-info``,
 imports and runs the measurement programs (``bench``, ``scripts.bench_e2e``,
-``scripts.scaling_bench``, ``scripts.measure_baseline``) at a tiny size,
-and reports every module of jax or of ``wavelet_tpu`` that got loaded.  A source scan refuses any import of either in the port,
+``scripts.scaling_bench``, ``scripts.measure_baseline``) and the host
+benches (``scripts.bench_ragged``, ``bench_quality``, ``bench_host_codec``,
+``fuzz_campaign``, ``bench_plotfile_io``) at a tiny size, and reports
+every module of jax or of ``wavelet_tpu`` that got loaded.  Each host
+bench answers ``python -m ... --help``.  A source scan refuses any import of either in the port,
 ``chip_smoke.py`` and ``profile_runs.py``.
 """
 
@@ -82,6 +85,15 @@ assert r["extra"]["roundtrip_rmse"] >= 0
 scaling_bench.run("cpu", 2, per_device_boxes=1, dim=4, iters=1, reps=1)
 bench_e2e.smooth_spiky_boxes(1, 8, 0)
 measure_baseline.spiky_plotfile(os.path.join(root, "spiky"), 1, 8)
+from wavelet_tpu_torch.scripts import (bench_host_codec, bench_plotfile_io,
+                                       bench_quality, bench_ragged,
+                                       fuzz_campaign)
+bench_ragged.route_geometry(bench_ragged.build_shapes()[0], "halves")
+bench_quality.synth_dataset(os.path.join(root, "quality"), 1)
+assert fuzz_campaign.main(["--device", "cpu", "--trials-per", "2", "--root",
+                           root, "--out", os.path.join(root, "f.json")]) == 0
+bench_host_codec.make_coeffs(2, 64, 0.1)
+bench_plotfile_io.synth_level(1, 4, 1, 0)
 loaded = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and (m.split(".")[0] in ("jax", "jaxlib",
                                                             "wavelet_tpu")))
@@ -96,6 +108,21 @@ def test_port_runs_without_jax(tmp_path):
                        timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
     assert "LOADED []" in p.stdout, p.stdout
+
+
+@pytest.mark.parametrize("name", ["bench_ragged", "bench_quality",
+                                  "bench_host_codec", "fuzz_campaign",
+                                  "bench_plotfile_io"])
+def test_host_bench_help(name):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    p = subprocess.run([sys.executable, "-m",
+                        f"wavelet_tpu_torch.scripts.{name}", "--help"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.startswith(
+        f"usage: python -m wavelet_tpu_torch.scripts.{name}"), p.stdout
+    assert "--device" in p.stdout and "--out" in p.stdout
 
 
 def test_port_sources_never_import_jax():

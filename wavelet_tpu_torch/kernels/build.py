@@ -23,7 +23,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["NVCC_FLAGS", "library", "build_seconds", "build_log"]
+__all__ = ["NVCC_FLAGS", "library", "library_path", "build_seconds",
+           "build_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -63,6 +64,12 @@ def _lib_path(srcs) -> str:
         with open(s, "rb") as f:
             h.update(f.read())
     return os.path.join(_BUILD_DIR, f"libwt_kernels_{h.hexdigest()[:16]}.so")
+
+
+def library_path() -> str:
+    """Where :func:`library` loads the library from (and builds it to, if
+    it is missing) for the sources and flags of this checkout."""
+    return _lib_path(_sources())
 
 
 def _run_all(cmds) -> str:

@@ -59,6 +59,7 @@ from wavelet_tpu_torch.pipeline import compress as compress_mod
 from wavelet_tpu_torch.pipeline.decompress import decompress_run
 from wavelet_tpu_torch.runtime import batching, engine
 from wavelet_tpu_torch.runtime.mesh import resolve_device
+from wavelet_tpu_torch.scripts import harness
 
 __all__ = ["CONFIGS", "smooth_spiky_boxes", "write_dataset", "run_config",
            "main"]
@@ -330,9 +331,7 @@ def main(argv=None) -> dict:
     finally:
         if not a.keep_files:
             shutil.rmtree(run_dir, ignore_errors=True)
-    os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-    with open(a.out, "w") as f:
-        json.dump(results, f, indent=2, default=float)
+    harness.write_json(a.out, results)
     print(json.dumps(results, default=float), flush=True)
     return results
 

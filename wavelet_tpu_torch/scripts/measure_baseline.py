@@ -43,6 +43,7 @@ from wavelet_tpu_torch.pipeline.decompress import decompress_run
 from wavelet_tpu_torch.pipeline.estimate import estimate_run
 from wavelet_tpu_torch.runtime import engine as eng_mod
 from wavelet_tpu_torch.runtime.mesh import resolve_device
+from wavelet_tpu_torch.scripts import harness
 
 __all__ = ["synthetic_plotfile", "spiky_plotfile", "CONFIG4_MODES",
            "CONFIG5_MODES", "config3", "config4", "config5", "config6",
@@ -273,9 +274,7 @@ def main(argv=None) -> dict:
         for k in only:
             CONFIGS[k](results, os.path.join(work, f"config{k}"), a.scale,
                        str(dev))
-    os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-    with open(a.out, "w") as f:
-        json.dump(results, f, indent=2, default=float)
+    harness.write_json(a.out, results)
     print(json.dumps(results, default=float), flush=True)
     return results
 

@@ -38,6 +38,7 @@ import numpy as np
 
 from wavelet_tpu_torch.runtime import distributed
 from wavelet_tpu_torch.runtime import mesh as mesh_lib
+from wavelet_tpu_torch.scripts import harness
 
 __all__ = ["mesh_entries", "run", "main"]
 
@@ -164,9 +165,7 @@ def main(argv=None) -> dict:
     results = run(a.device, a.devices, a.repeat, a.per_device_boxes, a.dim,
                   a.iters)
     if mesh_lib.process_index() == 0:
-        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-        with open(a.out, "w") as f:
-            json.dump(results, f, indent=2)
+        harness.write_json(a.out, results)
     print(json.dumps(results), flush=True)
     return results
 
