@@ -2,6 +2,10 @@
 """End-to-end smoke check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # one card
+    python3 chip_smoke.py --kernels  # only the build, phase 4's Haar and
+                                     # packed checks and the Haar kernels'
+                                     # times (the sweep included); no
+                                     # result line
 
 Phases (any failure exits non-zero before the last line):
 
@@ -12,7 +16,12 @@ Phases (any failure exits non-zero before the last line):
    (int32 views) on coefficients, per-box max and min, and exactly equal
    histograms: the paths' shapes at 1, 2 and 3 scales, odd shapes,
    subnormals, an exact ``min == -max`` tie, a box holding NaN, +-inf and
-   signed zeros; then each inverse on the same shapes.  One exception: a
+   signed zeros, and the edges of K1/K2's flat (box, cell) grid: more
+   boxes than 65,535, single cells, tails on every axis, batches of 8x4x2
+   and 8^3 boxes with a NaN box, a -0.0 box, a subnormal box, a tie box
+   and an inf box among normal ones, one 256^3 box; the signed extrema
+   ``resolve_signed_absmax`` takes from them equal the plain version's;
+   then each inverse on the same shapes.  One exception: a
    zero extremum may come back as +0.0 from one and -0.0 from the other.
    The sign of a zero extremum cannot change ``|c| > t32`` (the threshold
    is then +-0 and no magnitude is below zero), so it cannot change an
@@ -113,7 +122,9 @@ Phases (any failure exits non-zero before the last line):
    K1/K2 on the same bytes of 8x4x2 boxes), each kernel's bound (its
    inputs read once and outputs written once at 3.35 TB/s), the link
    rate, and the two sparse-transfer stage rates that set
-   ``transfer=auto``'s breakevens.
+   ``transfer=auto``'s breakevens; then K1/K2's box-size sweep
+   (:data:`SWEEP_SHAPES`, each shape bitwise against the plain versions,
+   then timed through the wrappers and bare), printed on its own line.
 
 The line before the last is the JSON kernel report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -141,6 +152,19 @@ PACKED_SHAPE = (80, 64, 64, 128)   # the same boxes lane-packed, P = 2
 P64_SHAPE = (10240, 8, 4, 128)     # 8x4x2 boxes at P = 64, the same bytes
 TIME_SCALES = 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, data sheet
+# K1/K2's box-size sweep: each shape but the last is cut from the same
+# 41,943,040 N(0, 1) floats (167.8 MB)
+SWEEP_FLOATS = 41943040
+SWEEP_SHAPES = [
+    (655360, 8, 4, 2),      # the reference fixture's small box
+    (81920, 8, 8, 8),       # AMReX amr.blocking_factor 8
+    (10240, 16, 16, 16),
+    (1280, 32, 32, 32),     # AMReX amr.max_grid_size 32 (3D)
+    (8307, 9, 17, 33),      # odd extents on every axis
+    (160, 64, 64, 64),      # the kernel table's row
+    (20, 128, 128, 128),    # bench's large boxes
+    (32, 64, 64, 64),       # bench_host_codec's batch
+]
 # (name, extra -c keys, extra -d keys, timesteps, kernels the path must
 # launch, bound on the reconstruction error, the configuration whose
 # device=cuda archive and plotfiles this one must equal, options: "env"
@@ -276,7 +300,46 @@ def _check_inputs(device):
     zeros = np.zeros((2, 4, 4, 4), np.float32)
     zeros[1, 0, 0, 1] = -0.0
     cases.append(("zeros[2,4,4,4]", zeros))
+    # the flat (box, cell) geometry: more boxes than a grid dimension's
+    # 65,535, single cells, tails on every axis, one giant-path box
+    for shape in ((70000, 2, 2, 2), (4, 1, 1, 1), (3, 1, 2, 3),
+                  (2, 9, 17, 33), (1, 256, 256, 256)):
+        x = (rng.standard_normal(shape) * 50).astype(np.float32)
+        cases.append((f"normal{list(shape)}", x))
+    # many small boxes reduced side by side: special boxes among normal
+    # ones, so that no box's extrema leak into a neighbour's
+    for shape in ((4096, 8, 4, 2), (300, 8, 8, 8)):
+        x = (rng.standard_normal(shape) * 50).astype(np.float32)
+        n = shape[0]
+        x[n // 3, 1, 1, 1] = np.array([0x7FFFFFFF], np.uint32).view(
+            np.float32)[0]
+        x[n // 3 + 1] = -0.0
+        x[n // 3 + 2] = (rng.standard_normal(shape[1:]) * 1e-42).astype(
+            np.float32)
+        x[n // 3 + 3] = 0.0
+        x[n // 3 + 3, 1, 0, 0] = 8.0     # an exact min == -max tie
+        x[n - 1, 0, 0, 0] = np.inf
+        cases.append((f"special{list(shape)}", x))
     return [(n, torch.from_numpy(x).to(device)) for n, x in cases]
+
+
+def _check_signed(name, c, mx, mn, pc, pmx, pmn) -> None:
+    """The signed extrema the threshold takes (ties broken on the
+    coefficients) must be the plain version's; on a tie case every box is
+    a tie whose first occurrence is +1."""
+    import numpy as np
+
+    from wavelet_tpu_torch.runtime import engine
+
+    def signed(c, mx, mn):
+        return engine.resolve_signed_absmax(
+            mx.cpu().numpy(), mn.cpu().numpy(),
+            row_getter=lambda i: c[i].reshape(-1).cpu().numpy())
+
+    got = signed(c, mx, mn)
+    np.testing.assert_array_equal(got, signed(pc, pmx, pmn), err_msg=name)
+    if name.startswith("tie"):
+        assert (got == 1.0).all(), got
 
 
 def phase_kernels(device) -> dict:
@@ -285,7 +348,6 @@ def phase_kernels(device) -> dict:
     import torch
 
     from wavelet_tpu_torch.kernels import haar_cuda
-    from wavelet_tpu_torch.runtime import engine
 
     err = {"haar_forward": 0.0, "haar_inverse": 0.0}
     for name, x in _check_inputs(device):
@@ -300,13 +362,7 @@ def phase_kernels(device) -> dict:
         print(f"  forward {name}: bitwise={ok}")
         if not ok:
             raise AssertionError(f"forward kernel != plain on {name}")
-        if name.startswith("tie"):
-            flat = c.cpu().numpy().reshape(c.shape[0], -1)
-            signed = engine.resolve_signed_absmax(
-                mx.cpu().numpy(), mn.cpu().numpy(),
-                row_getter=flat.__getitem__)
-            first = flat[:, abs(flat[0]).argmax()]
-            assert (signed == first).all() and (signed == 1.0).all(), signed
+        _check_signed(name, c, mx, mn, pc, pmx, pmn)
         # the inverse on the kernel's coefficients and on raw values
         # (random coefficients exercise the zeroed odd tails too)
         for what, coeffs in (("coeffs", c), ("raw", x)):
@@ -335,6 +391,8 @@ def _pyramid_inputs(device):
     cases = [(f"normal{list(sh)}", normal(sh), s)
              for sh in ((8, 64, 64, 64), (4, 32, 64, 64)) for s in (2, 3)]
     cases.append(("normal[6,8,8,8]", normal((6, 8, 8, 8)), 3))
+    # more boxes than a grid dimension's 65,535; one cell at scale 1
+    cases.append(("normal[70000,4,4,4]", normal((70000, 4, 4, 4)), 2))
     sub = (rng.standard_normal((4, 16, 8, 8)) * 1e-37).astype(np.float32)
     flat = sub.reshape(-1)
     flat[::3] = (rng.standard_normal(flat[::3].size) * 1e-42).astype(
@@ -380,12 +438,14 @@ def phase_pyramid_kernels(device) -> dict:
             raise AssertionError(f"{kernel} kernel != plain on {name}")
 
     cases = _pyramid_inputs(device)
-    # forward_hist at one scale, where it takes odd shapes
+    # forward_hist at one scale, where it takes odd shapes; 140,000 boxes
+    # of 8x4x2 make each block of the capped grid walk several turns
     rng = np.random.default_rng(3)
     odd = [(f"normal{list(sh)}",
             torch.from_numpy((rng.standard_normal(sh) * 50).astype(
                 np.float32)).to(device), 1)
-           for sh in ((3, 33, 17, 9), (5, 8, 4, 2), (2, 1, 1, 1))]
+           for sh in ((3, 33, 17, 9), (5, 8, 4, 2), (2, 1, 1, 1),
+                      (140000, 8, 4, 2))]
     for name, x, s in cases + odd:
         name = f"{name} s={s}"
         c, hist = pyramid_cuda.forward_hist(x, s)
@@ -1970,16 +2030,13 @@ def _bound(nbytes: int) -> dict:
             "bound_bytes": nbytes}
 
 
-def phase_timing(device, rows) -> dict:
-    """Kernel, plain-version and library times; each kernel's bound; the
-    link; the sparse-transfer stages.  ``rows`` = :func:`main_path_rows`."""
+def _haar_timing(device) -> dict:
+    """K1, K2 and the pyramid kernels at :data:`TIME_SHAPE` (pyramids at
+    :data:`TIME_SCALES`): kernel and plain times, bounds."""
     import numpy as np
     import torch
 
-    from wavelet_tpu_torch.kernels import (build, compact_cuda, haar_cuda,
-                                           pyramid_cuda)
-    from wavelet_tpu_torch.kernels.haar_cuda import _raise_if, _stream
-    from wavelet_tpu_torch.runtime import engine
+    from wavelet_tpu_torch.kernels import haar_cuda, pyramid_cuda
 
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal(TIME_SHAPE, np.float32)).to(
@@ -2010,7 +2067,20 @@ def phase_timing(device, rows) -> dict:
                         ("pyramid_forward", 8 * n_box),
                         ("forward_hist", 2048 * 8), ("pyramid_inverse", 0)):
         out[name].update(_bound(2 * box + extra), library_ms=None)
+    return out
 
+
+def phase_timing(device, rows) -> dict:
+    """Kernel, plain-version and library times; each kernel's bound; the
+    link; the sparse-transfer stages.  ``rows`` = :func:`main_path_rows`."""
+    import numpy as np
+    import torch
+
+    from wavelet_tpu_torch.kernels import build, compact_cuda, haar_cuda
+    from wavelet_tpu_torch.kernels.haar_cuda import _raise_if, _stream
+    from wavelet_tpu_torch.runtime import engine
+
+    out = _haar_timing(device)
     # the compaction on the main path's coefficient rows: each kernel
     # alone on preallocated buffers; its plain version is the whole plain
     # compaction (the two kernels' function); the library yardstick is
@@ -2144,6 +2214,98 @@ def _packed_timing(device) -> dict:
     return out
 
 
+def _bare_launches(x, c):
+    """K1 and K2 through the C interface on buffers allocated once: what
+    the card takes without the wrappers' checks and allocations."""
+    import torch
+
+    from wavelet_tpu_torch.kernels import build
+    from wavelet_tpu_torch.kernels.haar_cuda import _raise_if, _stream
+
+    lib = build.library()
+    n, X, Y, Z = (int(d) for d in x.shape)
+    n_part = int(lib.wt_pyramid_forward_parts(X, Y, Z, 1))
+    c2, out = torch.empty_like(x), torch.empty_like(x)
+    ext = torch.empty((2, n), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, n, n_part), dtype=x.dtype, device=x.device)
+    st = _stream(x)
+
+    def forward(_):
+        _raise_if(lib.wt_pyramid_forward(
+            x.data_ptr(), c2.data_ptr(), ext[0].data_ptr(), ext[1].data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), None, n, X, Y, Z, 1, st),
+            lib, "haar_forward")
+
+    def inverse(_):
+        _raise_if(lib.wt_pyramid_inverse(c.data_ptr(), out.data_ptr(), None,
+                                         n, X, Y, Z, 1, st),
+                  lib, "haar_inverse")
+
+    return {"haar_forward": forward, "haar_inverse": inverse}
+
+
+def phase_sweep(device) -> list:
+    """K1 and K2 over :data:`SWEEP_SHAPES`: each held bitwise against its
+    plain version (extrema up to the sign of a zero), then timed through
+    its wrapper (``ms``) and bare (``bare_ms``, :func:`_bare_launches`);
+    bound = (each input read once + each output written once) / 3.35 TB/s,
+    the 8 bytes of a box's max and min included for K1."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from wavelet_tpu_torch.kernels import haar_cuda
+
+    rng = np.random.default_rng(6)
+    base = torch.from_numpy(rng.standard_normal(SWEEP_FLOATS, np.float32)).to(
+        device)
+    rows = []
+    for shape in SWEEP_SHAPES:
+        x = base[:math.prod(shape)].view(shape)
+        c, mx, mn = haar_cuda.fused_forward(x)
+        pc, pmx, pmn = haar_cuda.fused_forward_plain(x)
+        out = haar_cuda.fused_inverse(c)
+        pout = haar_cuda.fused_inverse_plain(c)
+        torch.cuda.synchronize()
+        if not (_bits_equal(c, pc) and _bits_equal(mx, pmx, True)
+                and _bits_equal(mn, pmn, True) and _bits_equal(out, pout)):
+            raise AssertionError(f"sweep {list(shape)}: kernel != plain")
+        del pc, pmx, pmn, out, pout
+        row = {"shape": list(shape)}
+        bare = _bare_launches(x, c)
+        for name, fn, inp, extra in (
+                ("haar_forward", haar_cuda.fused_forward, x, 8 * shape[0]),
+                ("haar_inverse", haar_cuda.fused_inverse, c, 0)):
+            ms = _time_ms(fn, inp)
+            bound = (2 * 4 * x.numel() + extra) / HBM_BYTES_PER_S * 1e3
+            row[name] = {"ms": ms, "bound_ms": bound, "share": bound / ms,
+                         "bare_ms": _time_ms(bare[name], None)}
+        rows.append(row)
+    return rows
+
+
+def kernels_only(device, card: str) -> int:
+    """``--kernels``: build, phase 4's Haar and lane-packed checks, the
+    K1/K2 sweep, K3/K4 at P = 64 beside K1/K2, and K1-K7 at
+    :data:`TIME_SHAPE`; no dataset, no result line."""
+    from wavelet_tpu_torch.kernels import build
+
+    build.library()
+    print(f"build: {build.build_seconds:.2f} s")
+    print(build.build_log.strip())
+    err = {**phase_kernels(device), **phase_pyramid_kernels(device),
+           **phase_packed_kernels(device)}
+    print(f"phase 4 ok (max_abs_err {err})")
+    print(f"K1/K2 box-size sweep ({card}): "
+          + json.dumps(phase_sweep(device)))
+    print(f"K3/K4 at P = 64 beside K1/K2 ({card}): "
+          + json.dumps(_packed_timing(device)["p64"]))
+    print(f"K1, K2 at {list(TIME_SHAPE)}, K5-K7 at scales={TIME_SCALES} "
+          f"({card}): " + json.dumps(_haar_timing(device)))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2162,6 +2324,8 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
+    if sys.argv[1:] == ["--kernels"]:
+        return kernels_only(device, card)
 
     from wavelet_tpu_torch.kernels import build
 
@@ -2259,6 +2423,8 @@ def main() -> int:
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="
           f"{TIME_SCALES}, compaction on the main path's coefficient rows "
           f"({card}): " + json.dumps(timing))
+    print(f"K1/K2 box-size sweep ({card}): "
+          + json.dumps(phase_sweep(device)))
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         t = timing[name]

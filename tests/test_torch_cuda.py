@@ -39,7 +39,9 @@ def _batch(shape, seed):
 
 
 @pytest.mark.parametrize("shape", [(32, 64, 64, 64), (3, 33, 17, 9),
-                                   (2, 1, 1, 1), (5, 8, 4, 2)])
+                                   (2, 1, 1, 1), (5, 8, 4, 2),
+                                   (70000, 2, 2, 2), (4096, 8, 4, 2),
+                                   (300, 8, 8, 8), (3, 1, 2, 3)])
 def test_kernels_match_plain(cuda_device, shape):
     x = torch.from_numpy(_batch(shape, 0)).to(cuda_device)
     c, mx, mn = haar_cuda.fused_forward(x)

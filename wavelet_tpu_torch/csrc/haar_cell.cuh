@@ -35,20 +35,6 @@ struct Cell {
     int wx, wy, wz;   // 2 for a pair, 1 for an odd tail
 };
 
-__device__ __forceinline__ Cell cell_of(long long cell, int X, int Y, int Z) {
-    const int cy = (Y >> 1) + (Y & 1);
-    const int cz = (Z >> 1) + (Z & 1);
-    Cell c;
-    c.k = (int)(cell % cz);
-    const long long r = cell / cz;
-    c.j = (int)(r % cy);
-    c.i = (int)(r / cy);
-    c.wx = (c.i < (X >> 1)) ? 2 : 1;
-    c.wy = (c.j < (Y >> 1)) ? 2 : 1;
-    c.wz = (c.k < (Z >> 1)) ? 2 : 1;
-    return c;
-}
-
 // Coefficient position of slot s (0 = low/avg, 1 = high/diff) of cell
 // index i along an axis of length n; a tail cell's one slot is n-1.
 __device__ __forceinline__ int coeff_pos(int i, int s, int w, int n) {
