@@ -2,10 +2,12 @@
 """End-to-end smoke check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # one card
-    python3 chip_smoke.py --kernels  # only the build, phase 4's Haar and
-                                     # packed checks and the Haar kernels'
-                                     # times (the sweep included); no
-                                     # result line
+    python3 chip_smoke.py --kernels  # only the build, phase 4's Haar,
+                                     # packed and compaction checks, the
+                                     # kernels' times (the sweep, the
+                                     # compaction and the histogram
+                                     # passes on constant and ramp boxes
+                                     # included); no result line
 
 Phases (any failure exits non-zero before the last line):
 
@@ -25,11 +27,15 @@ Phases (any failure exits non-zero before the last line):
    zero extremum may come back as +0.0 from one and -0.0 from the other.
    The sign of a zero extremum cannot change ``|c| > t32`` (the threshold
    is then +-0 and no magnitude is below zero), so it cannot change an
-   archive byte.  The compaction (``compact_count`` + ``compact_scatter``)
-   against its plain version, counts and the first ``count`` pairs
-   bitwise: rows of 1 to 64^3 elements with NaN, +-inf, signed zeros,
-   subnormals and thresholds negative, -0, +inf and NaN, and the main
-   path's [160, 262144] coefficient rows at the dataset's kept fraction.
+   archive byte.  The compaction (the single-pass ``compact``) against
+   its plain version, counts and the first ``count`` pairs bitwise: rows
+   of 1 to 64^3 elements with NaN, +-inf, signed zeros, subnormals,
+   thresholds negative, -0, +inf and NaN, rows that keep everything and a
+   row whose kept prefix reaches the cap exactly at a tile boundary; row
+   lengths at the 8192-element tile's edges (8191, 8192, 8193, 16387)
+   and not a multiple of 4 (the scalar loads); 70,000 rows of 64 and of
+   8195 elements; and the main path's [160, 262144] coefficient rows at
+   the dataset's kept fraction.
    The lane-packed kernels (``packed_forward``, ``packed_inverse``,
    ``packed_forward_hist``) likewise, bitwise with histograms exactly:
    [80, 64, 64, 128] (P = 2, the dataset's 64^3 boxes), [*, 32, 64, 128]
@@ -96,11 +102,11 @@ Phases (any failure exits non-zero before the last line):
    to rtol 1e-6), then ``dryrun_multichip(2)`` on the card.  (m) The
    measurement programs: ``python -m wavelet_tpu_torch.bench``'s main at
    [128, 64^3] with 3 reps (one JSON line, every stage with a rep used and
-   none implausible, K1-K5, K8 and K9 launched; its round-trip RMSE and
-   kept fraction at n = 16 equal on cuda and cpu), the scaling bench over
-   [cuda:0, cuda:0] at [16, 64^3], the e2e bench on 32 boxes of 64^3
-   (its archives equal on cuda and cpu but for the sidecar that names the
-   dataset's directory) and baseline config 6 on 16 boxes; its launches,
+   none implausible, K1-K5 and the compaction launched; its round-trip
+   RMSE and kept fraction at n = 16 equal on cuda and cpu), the scaling
+   bench over [cuda:0, cuda:0] at [16, 64^3], the e2e bench on 32 boxes of
+   64^3 (its archives equal on cuda and cpu but for the sidecar that names
+   the dataset's directory) and baseline config 6 on 16 boxes; its launches,
    which follow the timing loops' reps, are checked there and are not
    summed into the kernels line.  (n) The host benches at small size:
    ``scripts.bench_ragged --scale 0.01 --in-process`` (all 44 shapes,
@@ -117,12 +123,17 @@ Phases (any failure exits non-zero before the last line):
    left out of the kernels line.  The wall of each of (h)-(n) is printed
    on its own line.
 6. Timing: kernel and plain-version times with CUDA events at the main
-   path's 64^3 batch (the compaction on its coefficient rows; the packed
-   kernels on the same boxes packed two to a row, and at P = 64 beside
-   K1/K2 on the same bytes of 8x4x2 boxes), each kernel's bound (its
-   inputs read once and outputs written once at 3.35 TB/s), the link
-   rate, and the two sparse-transfer stage rates that set
-   ``transfer=auto``'s breakevens; then K1/K2's box-size sweep
+   path's 64^3 batch (the packed kernels on the same boxes packed two to
+   a row, and at P = 64 beside K1/K2 on the same bytes of 8x4x2 boxes),
+   each kernel's bound (its inputs read once and outputs written once at
+   3.35 TB/s), the link rate, and the two sparse-transfer stage rates that
+   set ``transfer=auto``'s breakevens.  The compaction on the main path's
+   coefficient rows and on bench's ~1% kept rows: the launch with its
+   scratch memset on preallocated buffers, the whole wrapper, the plain
+   version and ``torch.nonzero``, each with the function's bound (one read
+   of the rows, the pairs written).  ``forward_hist`` and
+   ``packed_forward_hist`` on N(0, 1), constant and ramp boxes (each held
+   exactly against its plain version first).  Then K1/K2's box-size sweep
    (:data:`SWEEP_SHAPES`, each shape bitwise against the plain versions,
    then timed through the wrappers and bare), printed on its own line.
 
@@ -189,7 +200,7 @@ CONFIGS = [
      ("threshold", 7 * 2 + 1), None),
     ("d", [f"keep={KEEP}", "scales=2", "transfer=sparse"],
      ["transfer=sparse"], TIMESTEPS[:1],
-     PYRAMID_PATH + ("compact_count", "compact_scatter"), ("range", 0.02),
+     PYRAMID_PATH + ("compact",), ("range", 0.02),
      "b"),
     ("e", [f"keep={KEEP}"], [], TIMESTEPS[:1],
      ("packed_forward", "packed_inverse"), ("range", 0.01), None,
@@ -210,11 +221,10 @@ KERNELS = {
                      "wavelet_tpu_torch/csrc/pyramid.cu"),
     "pyramid_inverse": ("wavelet_tpu/kernels/haar_pallas.py:643",
                         "wavelet_tpu_torch/csrc/pyramid.cu"),
-    "compact_count": ("wavelet_tpu/kernels/compact_pallas.py:196 (K8) and "
-                      "wavelet_tpu/kernels/compact_pallas.py:344 (K10)",
-                      "wavelet_tpu_torch/csrc/compact.cu"),
-    "compact_scatter": ("wavelet_tpu/kernels/compact_pallas.py:484 (K9)",
-                        "wavelet_tpu_torch/csrc/compact.cu"),
+    "compact": ("wavelet_tpu/kernels/compact_pallas.py:196 (K8), "
+                "wavelet_tpu/kernels/compact_pallas.py:344 (K10) and "
+                "wavelet_tpu/kernels/compact_pallas.py:484 (K9)",
+                "wavelet_tpu_torch/csrc/compact.cu"),
     "packed_forward": ("wavelet_tpu/kernels/haar_pallas.py:242 (K3)",
                        "wavelet_tpu_torch/csrc/packed.cu"),
     "packed_inverse": ("wavelet_tpu/kernels/haar_pallas.py:288 (K4)",
@@ -482,21 +492,36 @@ def phase_pyramid_kernels(device) -> dict:
     return err
 
 
+# (m, cap) of the compaction's edge rows: short rows, lengths at the edges
+# of the kernel's 8192-element tile, lengths that are not a multiple of 4
+# (its scalar loads: 4093, 4094, 8191, 8193, 16387 and 15147 are 1, 2, 3,
+# 1, 3 and 3 mod 4), and a 64^3 box's row
+COMPACT_TILE = 8192
+COMPACT_EDGES = [(1, 1), (16, 8), (64, 64), (4093, 517), (4094, 517),
+                 (COMPACT_TILE - 1, 517), (COMPACT_TILE, 517),
+                 (COMPACT_TILE + 1, 517), (2 * COMPACT_TILE + 3, 517),
+                 (13824, 517), (3 * 33 * 17 * 9, 2000), (64 ** 3, 5248)]
+# more rows than the old grid's 65,535: one tile and two tiles a row
+COMPACT_MANY_ROWS = [(70000, 64, 16), (70000, COMPACT_TILE + 3, 200)]
+
+
 def _compact_edge_cases(device):
     """(name, flat, t32, cap) cases for the compaction, from numpy seeds:
-    each row set holds a ~1% row, a row past the cap, NaN and +-inf,
-    zeros and signed zeros under thresholds -1 and -0, subnormals under a
-    subnormal threshold, and thresholds +inf and NaN."""
+    each row set of :data:`COMPACT_EDGES` holds a ~1% row, a row past the
+    cap, NaN and +-inf, zeros and signed zeros under thresholds -1 (which
+    keeps the whole row) and -0, subnormals under a subnormal threshold,
+    thresholds +inf and NaN, and a row whose kept prefix reaches the cap
+    exactly at the end of the first tile; then :data:`COMPACT_MANY_ROWS`,
+    with thresholds from -1 to 6."""
     import numpy as np
     import torch
 
     cases = []
-    for m, cap in ((1, 1), (16, 8), (64, 64), (4096, 300), (13824, 517),
-                   (3 * 33 * 17 * 9, 2000), (64 ** 3, 5248)):
+    for m, cap in COMPACT_EDGES:
         rng = np.random.default_rng(m)
-        flat = rng.standard_normal((9, m)).astype(np.float32)
-        flat[rng.random((9, m)) < 0.01] *= 100
-        t32 = np.full(9, 5.0, np.float32)
+        flat = rng.standard_normal((10, m)).astype(np.float32)
+        flat[rng.random((10, m)) < 0.01] *= 100
+        t32 = np.full(10, 5.0, np.float32)
         flat[1, rng.random(m) < 0.1] = 50.0
         flat[2, rng.random(m) < 0.01] = np.nan
         flat[2, rng.random(m) < 0.01] = np.inf
@@ -512,8 +537,20 @@ def _compact_edge_cases(device):
         t32[7] = np.nan
         flat[8] = 0.0
         t32[8] = 0.0
-        cases.append((f"edge[9,{m}] cap={cap}",
+        # cap kept in the first tile, more after it
+        first = min(m, COMPACT_TILE)
+        flat[9] = 0.0
+        flat[9, rng.choice(first, min(cap, first), replace=False)] = 50.0
+        flat[9, first:][rng.random(m - first) < 0.05] = -50.0
+        cases.append((f"edge[10,{m}] cap={cap}",
                       torch.from_numpy(flat).to(device),
+                      torch.from_numpy(t32).to(device), cap))
+    for n, m, cap in COMPACT_MANY_ROWS:
+        rng = np.random.default_rng(n + m)
+        flat = torch.from_numpy(rng.standard_normal((n, m), np.float32))
+        t32 = rng.uniform(0.0, 6.0, n).astype(np.float32)
+        t32[::7] = -1.0
+        cases.append((f"rows[{n},{m}] cap={cap}", flat.to(device),
                       torch.from_numpy(t32).to(device), cap))
     return cases
 
@@ -567,38 +604,37 @@ def main_path_rows(data_dir: str, device):
 
 
 def phase_compact_kernels(cases) -> dict:
-    """Phase 4, compaction: kernels vs plain version on the card, counts
-    and the first min(count, cap) pairs bitwise; returns the largest
-    absolute error per kernel (0.0 when bitwise equal)."""
+    """Phase 4, compaction: the kernel vs its plain version on the card,
+    counts and the first min(count, cap) pairs bitwise; returns the
+    largest absolute error (0.0 when bitwise equal) of the counts and
+    pairs."""
     import torch
 
     from wavelet_tpu_torch.kernels import compact_cuda
 
-    err = {"compact_count": 0.0, "compact_scatter": 0.0}
+    err = 0.0
     for name, flat, t32, cap in cases:
         counts, idx, vals = compact_cuda.compact(flat, t32, cap)
         pcounts, pidx, pvals = compact_cuda.compact_plain(flat, t32, cap)
         torch.cuda.synchronize()
         ok_count = bool((counts == pcounts).all())
-        err["compact_count"] = max(
-            err["compact_count"],
-            float((counts.long() - pcounts.long()).abs().max()))
+        err = max(err, float((counts.long() - pcounts.long()).abs().max()))
         # the slots a consumer reads: j < min(count, cap) of each row
         keep = (torch.arange(cap, device=flat.device)[None, :]
                 < pcounts.clamp(max=cap)[:, None])
         ok_pairs = ok_count and (bool((idx[keep] == pidx[keep]).all())
                                  and _bits_equal(vals[keep], pvals[keep]))
         if ok_count and bool(keep.any()):
-            err["compact_scatter"] = max(
-                err["compact_scatter"],
-                float((idx[keep].long() - pidx[keep].long()).abs().max()),
-                _max_abs_err(vals[keep], pvals[keep]))
+            err = max(err,
+                      float((idx[keep].long() - pidx[keep].long()).abs()
+                            .max()),
+                      _max_abs_err(vals[keep], pvals[keep]))
         kept = int(pcounts.sum())
         print(f"  compact {name}: kept {kept} of {flat.numel()}, counts "
               f"bitwise={ok_count}, pairs bitwise={ok_pairs}")
         if not (ok_count and ok_pairs):
-            raise AssertionError(f"compaction kernels != plain on {name}")
-    return err
+            raise AssertionError(f"compaction kernel != plain on {name}")
+    return {"compact": err}
 
 
 def _packed_inputs(device):
@@ -988,8 +1024,7 @@ def run_packed_compress(data_dir: str) -> dict:
     box_secs, box_stats, box_l, box_arch = _compress_cuda(
         data_dir, "f_box", [f"keep={KEEP}", "transfer=sparse"], steps, HALVES)
     _check_counts("f, box transfer=sparse", box_l,
-                  {"packed_forward": n, "compact_count": n,
-                   "compact_scatter": n}, ("haar_forward",))
+                  {"packed_forward": n, "compact": n}, ("haar_forward",))
     if box_arch != _tree(os.path.join(WORK, "e_arch_cuda")):
         raise AssertionError("(f) box transfer=sparse archive differs from "
                              "(e)'s")
@@ -1745,8 +1780,7 @@ BENCH_STAGES = ("forward", "forward_packed", "mask", "inverse",
                 "inverse_packed", "sparse_compact_stage",
                 "sparse_scatter_stage")
 BENCH_KERNELS = ("haar_forward", "haar_inverse", "packed_forward",
-                 "packed_inverse", "pyramid_forward", "compact_count",
-                 "compact_scatter")
+                 "packed_inverse", "pyramid_forward", "compact")
 BENCH_SMALL = ["--n", "16", "--reps", "1", "--iters", "1", "--large-n", "1",
                "--large-dim", "64"]
 
@@ -1755,10 +1789,11 @@ def run_measurement_programs() -> dict:
     """(m): the port's measurement programs on the card.  The device-stage
     bench (``python -m wavelet_tpu_torch.bench``'s main) at [128, 64^3]
     with 3 reps: one JSON line, every stage with a rep used and none
-    implausible, K1-K5, K8 and K9 launched; its round-trip RMSE and kept
-    fraction at n = 16 equal on cuda and cpu.  The scaling bench over
-    [cuda:0, cuda:0] at [16, 64^3]; the e2e bench on 32 boxes of 64^3, its
-    archives equal on cuda and cpu; baseline config 6 on 16 boxes."""
+    implausible, K1-K5 and the compaction launched; its round-trip RMSE
+    and kept fraction at n = 16 equal on cuda and cpu.  The scaling bench
+    over [cuda:0, cuda:0] at [16, 64^3]; the e2e bench on 32 boxes of
+    64^3, its archives equal on cuda and cpu; baseline config 6 on 16
+    boxes."""
     import torch
 
     from wavelet_tpu_torch import bench
@@ -2070,69 +2105,183 @@ def _haar_timing(device) -> dict:
     return out
 
 
-def phase_timing(device, rows) -> dict:
-    """Kernel, plain-version and library times; each kernel's bound; the
-    link; the sparse-transfer stages.  ``rows`` = :func:`main_path_rows`."""
+def _bench_compact_rows(device):
+    """``python -m wavelet_tpu_torch.bench``'s compaction input: [128,
+    64^3] N(0, 1) rows at its threshold (~0.93% kept) and the cap it
+    passes (``bench.stages``: 1.5x that fraction, rounded up to 128
+    slots)."""
     import numpy as np
     import torch
 
-    from wavelet_tpu_torch.kernels import build, compact_cuda, haar_cuda
+    from wavelet_tpu_torch import bench
+
+    n, m = 128, 64 ** 3
+    rng = np.random.default_rng(7)
+    flat = torch.from_numpy(rng.standard_normal((n, m), np.float32)).to(
+        device)
+    t32 = torch.full((n,), bench.COMPACT_THRESHOLD, dtype=torch.float32,
+                     device=device)
+    return flat, t32, int(np.ceil(1.5 * 0.0093 * m / 128) * 128)
+
+
+def _compact_bare(flat, t32, cap):
+    """The kernel through the C interface on buffers allocated once: ->
+    (the scratch's memset and the one launch, the memset alone), or None
+    for a library without ``wt_compact`` (an older tree's two-kernel
+    compaction, when this script is run against it)."""
+    import torch
+
+    from wavelet_tpu_torch.kernels import build
     from wavelet_tpu_torch.kernels.haar_cuda import _raise_if, _stream
+
+    lib = build.library()
+    if not hasattr(lib, "wt_compact"):
+        return None
+    n, m = (int(d) for d in flat.shape)
+    dev = flat.device
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    idx = torch.empty((n, cap), dtype=torch.int32, device=dev)
+    vals = torch.empty((n, cap), dtype=torch.float32, device=dev)
+    scratch = torch.empty(int(lib.wt_compact_scratch(n, m)),
+                          dtype=torch.int64, device=dev)
+    st = _stream(flat)
+
+    def memset(_):
+        scratch.zero_()
+
+    def launch(_):
+        scratch.zero_()
+        _raise_if(lib.wt_compact(flat.data_ptr(), t32.data_ptr(),
+                                 counts.data_ptr(), idx.data_ptr(),
+                                 vals.data_ptr(), scratch.data_ptr(), n, m,
+                                 cap, st), lib, "compact")
+
+    return launch, memset
+
+
+def _compact_timing(device, rows) -> dict:
+    """The compaction at the main path's rows (``rows`` =
+    :func:`main_path_rows`) and at bench's ~0.93% kept
+    (:func:`_bench_compact_rows`): in turns plain, bare, whole, whole,
+    bare, plain, where "whole" is the wrapper the engine calls and "bare"
+    the launch and its memset on preallocated buffers
+    (:func:`_compact_bare`); then ``torch.nonzero`` (positions only) as the
+    library yardstick.  The function's bound: one read of flat and t32,
+    the pairs written (8 bytes each, up to the cap) and the counts."""
+    import torch
+
+    from wavelet_tpu_torch.kernels import compact_cuda
+
+    out = {}
+    for name, (flat, t32, cap) in (("main_path", rows[:3]),
+                                   ("bench", _bench_compact_rows(device))):
+        n, m = (int(d) for d in flat.shape)
+        counts = (flat.abs() > t32[:, None]).sum(dim=1)
+        written = int(counts.clamp(max=cap).sum())
+
+        def whole(_):
+            return compact_cuda.compact(flat, t32, cap)
+
+        def plain(_):
+            return compact_cuda.compact_plain(flat, t32, cap)
+
+        bare = _compact_bare(flat, t32, cap)
+        runs = [plain, whole, whole, plain] if bare is None else \
+            [plain, bare[0], whole, whole, bare[0], plain]
+        t = [_time_ms(fn, None) for fn in runs]
+        res = {"shape": [n, m], "cap": cap, "kept": int(counts.sum()),
+               "kept_fraction": float(counts.sum()) / (n * m),
+               "max_row_kept_fraction": float(counts.max()) / m,
+               "pairs_written": written,
+               **_bound(n * m * 4 + 8 * n + 8 * written),
+               "plain_ms": (t[0] + t[-1]) / 2, "runs_ms": t}
+        res["ms"] = (t[1] + t[2]) / 2 if bare is None else (t[2] + t[3]) / 2
+        if bare is not None:
+            res["bare_ms"] = (t[1] + t[4]) / 2
+            res["memset_ms"] = _time_ms(bare[1], None)
+        res["library_ms"] = _time_ms(
+            lambda _: torch.nonzero(flat.abs() > t32[:, None]), None)
+        res["share"] = res["bound_ms"] / res["ms"]
+        res["stage_gbps"] = n * m * 4 / 1e9 / (res["ms"] / 1e3)
+        out[name] = res
+    return out
+
+
+def _hist_timing(device) -> dict:
+    """``forward_hist`` (K6, scales=2) at :data:`TIME_SHAPE` and
+    ``packed_forward_hist`` (K3 + histogram) on the same boxes packed two
+    to a row, on N(0, 1), constant and ramp boxes: each held exactly
+    against its plain version, then timed; bound and share.  A constant
+    box has zero details, so nearly every coefficient lands in one bin of
+    the histogram; a ramp's details are a few constants a box."""
+    import numpy as np
+    import torch
+
+    from wavelet_tpu_torch.kernels import packed_cuda, pyramid_cuda
+
+    rng = np.random.default_rng(8)
+    n, X, Y, Z = TIME_SHAPE
+    a = rng.standard_normal(n).astype(np.float32)[:, None, None, None]
+    b = rng.standard_normal(n).astype(np.float32)[:, None, None, None]
+    g = np.arange(X, dtype=np.float32)
+    ramp = (g[:, None, None] + 2 * g[None, :, None]
+            + 3 * g[None, None, :]) / np.float32(X)
+    inputs = {"normal": rng.standard_normal(TIME_SHAPE, np.float32),
+              "constant": np.broadcast_to(a, TIME_SHAPE),
+              "ramp": a * ramp[None] + b}
+    bound = _bound(2 * n * X * Y * Z * 4 + 2048 * 8)
+    out = {}
+    for kind, boxes in inputs.items():
+        x = torch.from_numpy(np.ascontiguousarray(boxes, np.float32)).to(
+            device)
+        xp = torch.from_numpy(np.ascontiguousarray(
+            boxes.reshape(n // 2, 2, X, Y, Z).transpose(0, 2, 3, 1, 4)
+            .reshape(n // 2, X, Y, 2 * Z), np.float32)).to(device)
+        for name, kern, plain, inp in (
+                ("forward_hist",
+                 lambda v: pyramid_cuda.forward_hist(v, TIME_SCALES),
+                 lambda v: pyramid_cuda.forward_hist_plain(v, TIME_SCALES),
+                 x),
+                ("packed_forward_hist",
+                 lambda v: packed_cuda.packed_forward_hist(v, 2),
+                 lambda v: packed_cuda.packed_forward_hist_plain(v, 2),
+                 xp)):
+            c, hist = kern(inp)
+            pc, phist = plain(inp)
+            torch.cuda.synchronize()
+            if not (_bits_equal(c, pc) and bool((hist == phist).all())):
+                raise AssertionError(f"{name} on {kind} boxes != plain")
+            ms = _time_ms(kern, inp)
+            out.setdefault(name, {})[kind] = {
+                "ms": ms, "share": bound["bound_ms"] / ms,
+                "top_bin_fraction": float(hist.max()) / float(hist.sum())}
+    for name in out:
+        out[name].update(bound)
+    return out
+
+
+def phase_timing(device, rows) -> dict:
+    """Kernel, plain-version and library times; each kernel's bound; the
+    link; the sparse-transfer stages.  ``rows`` = :func:`main_path_rows`."""
+    import torch
+
+    from wavelet_tpu_torch.kernels import compact_cuda, haar_cuda
     from wavelet_tpu_torch.runtime import engine
 
     out = _haar_timing(device)
-    # the compaction on the main path's coefficient rows: each kernel
-    # alone on preallocated buffers; its plain version is the whole plain
-    # compaction (the two kernels' function); the library yardstick is
-    # torch.nonzero, which gives positions only
-    flat, t32, cap, counts = rows
+    comp = _compact_timing(device, rows)
+    main = comp["main_path"]
+    # the kernels line's row: the launch (with its scratch memset) on
+    # preallocated buffers beside the whole plain compaction
+    out["compact"] = {"ms": main["bare_ms"], "plain_ms": main["plain_ms"],
+                      **{k: main[k] for k in ("bound_ms", "bound_by",
+                                              "bound_bytes", "library_ms")}}
+    # the whole compaction (the wrapper) is the compress side's sparse
+    # stage: its rate is the d2h breakeven
+    out["compaction"] = comp
+    flat, t32, _, counts = rows
     n, m = (int(d) for d in flat.shape)
-    lib = build.library()
-    n_tiles = int(lib.wt_compact_tiles(m))
-    cnt = torch.empty((n, n_tiles), dtype=torch.int32, device=device)
-    idx = torch.empty((n, cap), dtype=torch.int32, device=device)
-    vals = torch.empty((n, cap), dtype=torch.float32, device=device)
-    st = _stream(flat)
-
-    def count(_):
-        return lib.wt_compact_count(flat.data_ptr(), t32.data_ptr(),
-                                    cnt.data_ptr(), n, m, st)
-
-    _raise_if(count(None), lib, "compact_count")
-    incl = torch.cumsum(cnt, dim=1, dtype=torch.int32)
-    offs = incl - cnt
-
-    def scatter(_):
-        return lib.wt_compact_scatter(flat.data_ptr(), t32.data_ptr(),
-                                      offs.data_ptr(), idx.data_ptr(),
-                                      vals.data_ptr(), n, m, cap, st)
-
-    _raise_if(scatter(None), lib, "compact_scatter")
-
-    def plain(_):
-        return compact_cuda.compact_plain(flat, t32, cap)
-
-    def library(_):
-        return torch.nonzero(torch.abs(flat) > t32[:, None])
-
-    library_ms = _time_ms(library, None)
-    written = int(np.minimum(counts, cap).sum())
-    head = n * m * 4 + n * 4 + n * n_tiles * 4
-    out["compact_count"] = {**_pair(count, plain, None), **_bound(head),
-                            "library_ms": library_ms}
-    out["compact_scatter"] = {**_pair(scatter, plain, None),
-                              **_bound(head + 8 * written),
-                              "library_ms": library_ms}
-    # the whole compaction (wrapper: both kernels and the scan) is the
-    # compress side's sparse stage: its rate is the d2h breakeven
-    stage_ms = _time_ms(lambda _: compact_cuda.compact(flat, t32, cap), None)
     dense_gb = n * m * 4 / 1e9
-    out["compaction"] = {"ms": stage_ms, "kept": int(counts.sum()),
-                         "kept_fraction": float(counts.sum()) / (n * m),
-                         "max_row_kept_fraction": float(counts.max()) / m,
-                         "cap": cap, "pairs_written": written,
-                         **_bound(n * m * 4 + n * 4 + 8 * written),
-                         "stage_gbps": dense_gb / (stage_ms / 1e3)}
     # the decompress side's sparse stage: padded pairs as
     # HostPacker.unpack_sparse makes them, scattered into zeroed rows and
     # inverted (one scale, the main path's): its rate is the h2d
@@ -2286,16 +2435,28 @@ def phase_sweep(device) -> list:
 
 
 def kernels_only(device, card: str) -> int:
-    """``--kernels``: build, phase 4's Haar and lane-packed checks, the
-    K1/K2 sweep, K3/K4 at P = 64 beside K1/K2, and K1-K7 at
-    :data:`TIME_SHAPE`; no dataset, no result line."""
+    """``--kernels``: build, phase 4's Haar, lane-packed and compaction
+    checks, the K1/K2 sweep, K3/K4 at P = 64 beside K1/K2, K1-K7 at
+    :data:`TIME_SHAPE`, the compaction at the main path's rows (the
+    dataset is written for them alone) and at bench's, and the histogram
+    passes on constant and ramp boxes; no end-to-end path, no result
+    line."""
     from wavelet_tpu_torch.kernels import build
 
     build.library()
     print(f"build: {build.build_seconds:.2f} s")
     print(build.build_log.strip())
+    shutil.rmtree(WORK, ignore_errors=True)
+    data_dir = os.path.join(WORK, "data")
+    make_dataset(data_dir)
+    rows = main_path_rows(data_dir, device)
+    shutil.rmtree(WORK, ignore_errors=True)
     err = {**phase_kernels(device), **phase_pyramid_kernels(device),
-           **phase_packed_kernels(device)}
+           **phase_packed_kernels(device),
+           **phase_compact_kernels(
+               _compact_edge_cases(device)
+               + [(f"main path [{TIME_SHAPE[0]}, {rows[0].shape[1]}] "
+                   f"cap={rows[2]}", *rows[:3])])}
     print(f"phase 4 ok (max_abs_err {err})")
     print(f"K1/K2 box-size sweep ({card}): "
           + json.dumps(phase_sweep(device)))
@@ -2303,6 +2464,10 @@ def kernels_only(device, card: str) -> int:
           + json.dumps(_packed_timing(device)["p64"]))
     print(f"K1, K2 at {list(TIME_SHAPE)}, K5-K7 at scales={TIME_SCALES} "
           f"({card}): " + json.dumps(_haar_timing(device)))
+    print(f"compaction ({card}): "
+          + json.dumps(_compact_timing(device, rows)))
+    print(f"histogram passes on normal, constant and ramp boxes ({card}): "
+          + json.dumps(_hist_timing(device)))
     return 0
 
 
@@ -2419,9 +2584,10 @@ def main() -> int:
           f"{QUALITY_BOXES} boxes, fuzz at {FUZZ_TRIALS} trials, host codec, "
           f"plotfile I/O; {card}; {secs:.1f} s): " + json.dumps(res))
     timing = phase_timing(device, rows)
+    timing["histogram_passes"] = _hist_timing(device)
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="
-          f"{TIME_SCALES}, compaction on the main path's coefficient rows "
+          f"{TIME_SCALES}, compaction on the main path's and bench's rows "
           f"({card}): " + json.dumps(timing))
     print(f"K1/K2 box-size sweep ({card}): "
           + json.dumps(phase_sweep(device)))

@@ -1,8 +1,8 @@
 """The port's compaction (``kernels/compact_cuda.compact``) against the JAX
 package's, on the CPU.
 
-The CUDA kernels ``compact_count``/``compact_scatter`` run only on the card
-(tests/test_torch_cuda.py and chip_smoke.py hold them to the plain
+The single-pass CUDA kernel ``compact`` runs only on the card
+(tests/test_torch_cuda.py and chip_smoke.py hold it to the plain
 version); here the plain version, which a CPU tensor takes, is held
 bitwise to three JAX versions of the same function: ``engine._compact_step``
 (the argsort reference), and ``compact_pallas.compact_fast`` with the Pallas
@@ -27,14 +27,20 @@ from wavelet_tpu.runtime import engine as jengine  # noqa: E402
 from wavelet_tpu_torch.kernels import compact_cuda  # noqa: E402
 
 # (m, cap): the fast path's row lengths (a power of two, a 64^3 box, a
-# length that is not a multiple of 512 nor of the kernel's 4096 tile), and
+# length that is not a multiple of 512 nor of the kernel's 8192 tile), and
 # caps below some rows' counts
 SHAPES = [(8192, 512), (64 ** 3, 5248), (13824, 517)]
+# the kernel's 8192-element tile: row lengths one below, at, one above and
+# two tiles and 3 past it, and lengths 1, 2 and 3 mod 4 (its scalar
+# loads); the cap is at least 512, which the Pallas assembly (K9) needs
+TILE = 8192
+TILE_SHAPES = [(m, 517) for m in (TILE - 1, TILE, TILE + 1, 2 * TILE + 3,
+                                  4093, 4094)]
 NAN = np.float32(np.nan)
 SUB = np.float32(1e-40)          # subnormal
 
 
-def _case(m: int, kind: str):
+def _case(m: int, kind: str, cap: int = 0):
     """-> (flat [n, m] f32, t32 [n] f32) from a numpy seed."""
     rng = np.random.default_rng(m + len(kind))
     n = 7
@@ -78,6 +84,21 @@ def _case(m: int, kind: str):
         flat[2, rng.random(m) < 0.3] = -SUB
         t32[2] = np.float32(2e-38)
         t32[3] = SUB
+        return flat, t32
+    if kind == "tile":
+        # rows whose kept prefix reaches the cap exactly at the end of the
+        # first tile, with more kept after it (1) and nothing after it (2)
+        first = min(m, TILE)
+        for r in (1, 2):
+            flat[r] = 0.0
+            flat[r, rng.choice(first, cap, replace=False)] = 50.0
+        flat[1, first:][rng.random(m - first) < 0.05] = -50.0
+        # threshold -1 keeps every value: normal ones (3), zeros and
+        # signed zeros (4)
+        t32[3] = -1.0
+        flat[4, ::2] = 0.0
+        flat[4, 1::4] = -0.0
+        t32[4] = -1.0
         return flat, t32
     raise ValueError(kind)
 
@@ -147,6 +168,24 @@ def test_plain_matches_jax(m, cap, kind, ref):
 
 
 @pytest.mark.parametrize("ref", ["argsort", "k8_k9", "k10_k9"])
+@pytest.mark.parametrize("kind", ["special", "tile"])
+@pytest.mark.parametrize("m,cap", TILE_SHAPES)
+def test_plain_matches_jax_at_tile_edges(m, cap, kind, ref):
+    """Row lengths at the CUDA kernel's tile edges and not a multiple of 4,
+    rows whose prefix reaches the cap at a tile boundary, and rows that
+    keep everything: the plain version the kernel is held to on the card
+    against the three JAX versions."""
+    flat, t32 = _case(m, kind, cap)
+    got = _plain(flat, t32, cap)
+    fast = ref != "argsort"
+    _assert_equal(got, _jax(flat, t32, cap, ref), cap, fast,
+                  flat if fast else None)
+    assert (got[0] > cap).any() and (got[0][got[0] <= cap] > 0).any()
+    if kind == "tile":
+        assert got[0][2] == cap and (got[0][3:5] == m).all()
+
+
+@pytest.mark.parametrize("ref", ["argsort", "k8_k9", "k10_k9"])
 @pytest.mark.parametrize("m,cap", SHAPES)
 def test_plain_matches_jax_subnormal(flush_denormal, m, cap, ref):
     flat, t32 = _case(m, "subnormal")
@@ -156,7 +195,7 @@ def test_plain_matches_jax_subnormal(flush_denormal, m, cap, ref):
 
 @pytest.mark.parametrize("m", [1, 16, 64, 3 * 33 * 17 * 9])
 def test_plain_matches_argsort_short_and_ragged_rows(m):
-    """Rows shorter than one 4096-element tile, and a row that is not a
+    """Rows shorter than one 8192-element tile, and a row that is not a
     multiple of it (the kernel's ragged edge), against the argsort path."""
     rng = np.random.default_rng(m)
     flat = (rng.standard_normal((5, m)) * 3).astype(np.float32)
@@ -197,6 +236,7 @@ def test_compact_checks_inputs():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    assert set(compact_cuda.launches) == {"compact"}
     before = dict(compact_cuda.launches)
     flat = torch.ones((2, 8))
     compact_cuda.compact(flat, torch.zeros(2), 8)

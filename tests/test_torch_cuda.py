@@ -139,12 +139,13 @@ def test_engine_scales_cuda_equals_cpu(cuda_device, scales):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
 
 
-def _compact_rows(m, seed):
+def _compact_rows(m, seed, cap):
     """Rows at ~1% kept, ~10% kept (past the cap), with NaN and +-inf,
-    zeros and signed zeros under negative and +-0 thresholds, subnormals,
-    and thresholds +inf and NaN."""
+    zeros and signed zeros under negative and +-0 thresholds (-1 keeps
+    the whole row), subnormals, thresholds +inf and NaN, and a row whose
+    kept prefix reaches ``cap`` at a tile boundary."""
     rng = np.random.default_rng(seed)
-    n = 9
+    n = 10
     flat = rng.standard_normal((n, m)).astype(np.float32)
     flat[rng.random((n, m)) < 0.01] *= 100
     t32 = np.full(n, 5.0, np.float32)
@@ -163,6 +164,12 @@ def _compact_rows(m, seed):
     t32[7] = np.nan
     flat[8] = 0.0
     t32[8] = 0.0
+    # the kept prefix reaches the cap exactly at the end of the kernel's
+    # first 8192-element tile, and more is kept after it
+    first = min(m, 8192)
+    flat[9] = 0.0
+    flat[9, rng.choice(first, min(cap, first), replace=False)] = 50.0
+    flat[9, first:][rng.random(m - first) < 0.05] = -50.0
     return flat, t32
 
 
@@ -179,9 +186,13 @@ def _assert_compact_equal(got, want, cap):
 
 @pytest.mark.parametrize("m,cap", [(1, 1), (16, 8), (64, 64), (4096, 300),
                                    (13824, 517), (3 * 33 * 17 * 9, 2000),
-                                   (64 ** 3, 5248)])
+                                   (64 ** 3, 5248), (4093, 517), (4094, 517),
+                                   (8191, 517), (8192, 517), (8193, 517),
+                                   (16387, 517)])
 def test_compact_kernels_match_plain(cuda_device, m, cap):
-    flat, t32 = _compact_rows(m, m)
+    """Row lengths at the kernel's 8192-element tile edges (8191, 8192,
+    8193, 16387) and 1, 2, 3 mod 4 (its scalar loads) among the others."""
+    flat, t32 = _compact_rows(m, m, cap)
     flat = torch.from_numpy(flat).to(cuda_device)
     t32 = torch.from_numpy(t32).to(cuda_device)
     got = compact_cuda.compact(flat, t32, cap)
@@ -190,12 +201,27 @@ def test_compact_kernels_match_plain(cuda_device, m, cap):
     _assert_compact_equal(got, want, cap)
 
 
+def test_compact_many_short_rows(cuda_device):
+    """70,000 rows, more than a grid dimension's 65,535, of 64 elements."""
+    rng = np.random.default_rng(70000)
+    n, m, cap = 70000, 64, 16
+    flat = torch.from_numpy(rng.standard_normal((n, m), np.float32)).to(
+        cuda_device)
+    t32 = rng.uniform(0.0, 3.0, n).astype(np.float32)
+    t32[::7] = -1.0
+    t32 = torch.from_numpy(t32).to(cuda_device)
+    got = compact_cuda.compact(flat, t32, cap)
+    want = compact_cuda.compact_plain(flat, t32, cap)
+    torch.cuda.synchronize()
+    _assert_compact_equal(got, want, cap)
+
+
 def test_compact_launches_count(cuda_device):
-    before = dict(compact_cuda.launches)
+    assert set(compact_cuda.launches) == {"compact"}
+    before = compact_cuda.launches["compact"]
     flat = torch.ones((2, 8), device=cuda_device)
     compact_cuda.compact(flat, torch.zeros(2, device=cuda_device), 8)
-    for k in ("compact_count", "compact_scatter"):
-        assert compact_cuda.launches[k] == before[k] + 1
+    assert compact_cuda.launches["compact"] == before + 1
 
 
 @pytest.mark.parametrize("dims,scales", [((16, 16, 16), 1),

@@ -116,12 +116,10 @@ def _bind(lib) -> None:
     lib.wt_forward_hist.restype = i32
     lib.wt_pyramid_inverse.argtypes = [vp] * 3 + [i32] * 5 + [vp]
     lib.wt_pyramid_inverse.restype = i32
-    lib.wt_compact_tiles.argtypes = [i32]
-    lib.wt_compact_tiles.restype = i32
-    lib.wt_compact_count.argtypes = [vp] * 3 + [i32] * 2 + [vp]
-    lib.wt_compact_count.restype = i32
-    lib.wt_compact_scatter.argtypes = [vp] * 5 + [i32] * 3 + [vp]
-    lib.wt_compact_scatter.restype = i32
+    lib.wt_compact_scratch.argtypes = [i32, i32]
+    lib.wt_compact_scratch.restype = ctypes.c_longlong
+    lib.wt_compact.argtypes = [vp] * 6 + [i32] * 3 + [vp]
+    lib.wt_compact.restype = i32
     lib.wt_packed_forward.argtypes = [vp] * 5 + [i32] * 5 + [vp]
     lib.wt_packed_forward.restype = i32
     lib.wt_packed_forward_hist.argtypes = [vp] * 3 + [i32] * 5 + [vp]

@@ -1,5 +1,5 @@
 """Exact stream compaction of thresholded rows for Hopper: wrapper, plain
-version and launch counts.
+version and launch count.
 
 :func:`compact` ``flat [n, m] f32, t32 [n] f32, cap -> (counts [n] int32,
 idx [n, cap] int32, vals [n, cap] f32)``: row i keeps the positions p with
@@ -7,22 +7,19 @@ idx [n, cap] int32, vals [n, cap] f32)``: row i keeps the positions p with
 kept position in ascending order and its value.  Slots past that are junk
 that no consumer reads.  It is ``engine._compact_step`` of the JAX
 package, and replaces its sort-free drop-in
-``wavelet_tpu/kernels/compact_pallas.py:compact_fast`` with two kernels
-(CUDA C++, ``wavelet_tpu_torch/csrc/compact.cu``):
+``wavelet_tpu/kernels/compact_pallas.py:compact_fast`` — the TPU kernels
+``_rank_select_pallas`` (K8), ``_rank_select_pallas_direct`` (K10) and
+``_assemble_pallas`` (K9) — with one single-pass kernel, ``compact``
+(CUDA C++, ``wavelet_tpu_torch/csrc/compact.cu``): each tile of a row is
+read once, ranked in the block, and its row offset found by a decoupled
+look-back over the row's earlier tiles, so each kept pair is written at
+its final slot in the one launch.
 
-- ``compact_count``: per-tile kept counts, replacing
-  ``compact_pallas.py:_rank_select_pallas`` (K8) and
-  ``_rank_select_pallas_direct`` (K10, the same read from the flat layout);
-- ``compact_scatter``: each kept pair written at its row offset, replacing
-  ``compact_pallas.py:_assemble_pallas`` (K9).
-
-Between them the wrapper takes the per-row exclusive scan of the tile
-counts with ``torch.cumsum``, as the JAX package takes it outside Pallas.
 The result is exact for every row: no per-chunk capacity, no overflow flag,
-no argsort fallback.  A CUDA tensor launches the kernels or raises; a CPU
+no argsort fallback.  A CUDA tensor launches the kernel or raises; a CPU
 tensor goes to :func:`compact_plain` (the whole-row branch of
-``_compact_step``), which is also what the kernels are held to on the card.
-``launches`` counts kernel launches per kernel name.
+``_compact_step``), which is also what the kernel is held to on the card.
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,7 +30,7 @@ from wavelet_tpu_torch.kernels.haar_cuda import _raise_if, _stream
 
 __all__ = ["compact", "compact_plain", "launches", "reset_launches"]
 
-launches = {"compact_count": 0, "compact_scatter": 0}
+launches = {"compact": 0}
 
 
 def reset_launches() -> None:
@@ -85,23 +82,22 @@ def compact(flat: torch.Tensor, t32: torch.Tensor, cap: int):
 
     lib = build.library()
     n, m = (int(d) for d in flat.shape)
+    words = int(lib.wt_compact_scratch(n, m))
+    if words < 0:
+        raise ValueError(f"compact: [{n}, {m}] needs more tiles than one "
+                         "launch takes")
     dev = flat.device
-    n_tiles = int(lib.wt_compact_tiles(m))
-    cnt = torch.empty((n, n_tiles), dtype=torch.int32, device=dev)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
     idx = torch.empty((n, cap), dtype=torch.int32, device=dev)
     vals = torch.empty((n, cap), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.wt_compact_count(flat.data_ptr(), t32.data_ptr(),
-                                   cnt.data_ptr(), n, m, _stream(flat))
-        _raise_if(err, lib, "compact_count")
-        launches["compact_count"] += 1
-        incl = torch.cumsum(cnt, dim=1, dtype=torch.int32)
-        offs = incl - cnt
-        counts = incl[:, -1].contiguous()
-        err = lib.wt_compact_scatter(flat.data_ptr(), t32.data_ptr(),
-                                     offs.data_ptr(), idx.data_ptr(),
-                                     vals.data_ptr(), n, m, cap,
-                                     _stream(flat))
-        _raise_if(err, lib, "compact_scatter")
-        launches["compact_scatter"] += 1
+        # the tiles' status words and the ticket: zeroed for this call
+        # alone (never cached: concurrent calls on other streams would race)
+        scratch = torch.zeros(words, dtype=torch.int64, device=dev)
+        err = lib.wt_compact(flat.data_ptr(), t32.data_ptr(),
+                             counts.data_ptr(), idx.data_ptr(),
+                             vals.data_ptr(), scratch.data_ptr(), n, m, cap,
+                             _stream(flat))
+        _raise_if(err, lib, "compact")
+        launches["compact"] += 1
     return counts, idx, vals

@@ -299,17 +299,19 @@ class CodecEngine:
     # vs sparse 1/S + 2f/B for a device stage of S GB/s: sparse wins iff
     # B < S * (1 - 2f), about B < S at a few percent kept.
     # - compress fetches pairs d2h behind the compact stage
-    #   (compact_cuda.compact): S = 881 GB/s of coefficients;
+    #   (compact_cuda.compact, the single-pass kernel): S = 1448 GB/s of
+    #   coefficients;
     # - decompress ships pairs h2d in front of the scatter + inverse
     #   stage (scatter_rows, then the one-scale inverse kernel): S = 230
     #   GB/s.
     # Both measured by chip_smoke.py on its dataset's [160, 64, 64, 64]
     # one-scale coefficient rows (keep=0.999, 16.6% kept) on an NVIDIA
-    # H100 80GB HBM3 at a 700 W power limit (PERF.md, PR 3).  Other cards
+    # H100 80GB HBM3 at a 700.00 W power limit (PERF.md).  Other cards
     # differ, so both are env-overridable under the JAX package's names:
     # WAVELET_TPU_SPARSE_BELOW_{D2H,H2D}=GB/s.
     _AUTO_SPARSE_BELOW_GBPS = {
-        "d2h": float(os.environ.get("WAVELET_TPU_SPARSE_BELOW_D2H", 881.0)),
+        "d2h": float(os.environ.get("WAVELET_TPU_SPARSE_BELOW_D2H",
+                                    1448.0)),
         "h2d": float(os.environ.get("WAVELET_TPU_SPARSE_BELOW_H2D", 230.0)),
     }
     # links drift, so the probe re-runs on a cadence instead of pinning
