@@ -104,11 +104,17 @@ Phases (any failure exits non-zero before the last line):
    [128, 64^3] with 3 reps (one JSON line, every stage with a rep used and
    none implausible, K1-K5 and the compaction launched; its round-trip
    RMSE and kept fraction at n = 16 equal on cuda and cpu), the scaling
-   bench over [cuda:0, cuda:0] at [16, 64^3], the e2e bench on 32 boxes of
-   64^3 (its archives equal on cuda and cpu but for the sidecar that names
-   the dataset's directory) and baseline config 6 on 16 boxes; its launches,
-   which follow the timing loops' reps, are checked there and are not
-   summed into the kernels line.  (n) The host benches at small size:
+   bench over [cuda:0, cuda:0] at [16, 64^3], the e2e bench's cube64 on 32
+   boxes of 64^3 (its archives equal on cuda and cpu but for the sidecar
+   that names the dataset's directory), its global64 on 2 timesteps of 32
+   boxes of 64^3 in box mode, global mode with the default
+   ``globalcache`` and global mode with ``globalcache=0`` (each mode's
+   bundle equal on cuda and cpu but for those sidecars, equal thresholds,
+   2 and 0 timesteps cached, K1 alone in box mode, K6 alone in both global
+   modes and twice as often without the cache, nothing on cpu) and
+   baseline config 6 on 16 boxes; its launches, which follow the timing
+   loops' reps, are checked there and are not summed into the kernels
+   line, but for global64's.  (n) The host benches at small size:
    ``scripts.bench_ragged --scale 0.01 --in-process`` (all 44 shapes,
    both levels, two timesteps) on both layouts with ``--compare-cpu``,
    archives and plotfiles byte-identical to the ``device=cpu`` run's, with
@@ -119,9 +125,9 @@ Phases (any failure exits non-zero before the last line):
    50`` with no backend disagreement;
    ``scripts.bench_host_codec`` and ``scripts.bench_plotfile_io`` at small
    sizes, each JSON naming this card and the host codec's device rate
-   measured on it.  (n)'s launches, like (m)'s, are checked in (n) and
-   left out of the kernels line.  The wall of each of (h)-(n) is printed
-   on its own line.
+   measured on it.  (n)'s launches, like those of (m)'s timed runs, are
+   checked in (n) and left out of the kernels line.  The wall of each of
+   (h)-(n) is printed on its own line.
 6. Timing: kernel and plain-version times with CUDA events at the main
    path's 64^3 batch (the packed kernels on the same boxes packed two to
    a row, and at P = 64 beside K1/K2 on the same bytes of 8x4x2 boxes),
@@ -1791,9 +1797,9 @@ def run_measurement_programs() -> dict:
     with 3 reps: one JSON line, every stage with a rep used and none
     implausible, K1-K5 and the compaction launched; its round-trip RMSE
     and kept fraction at n = 16 equal on cuda and cpu.  The scaling bench
-    over [cuda:0, cuda:0] at [16, 64^3]; the e2e bench on 32 boxes of
-    64^3, its archives equal on cuda and cpu; baseline config 6 on 16
-    boxes."""
+    over [cuda:0, cuda:0] at [16, 64^3]; the e2e bench's cube64 on 32
+    boxes of 64^3, its archives equal on cuda and cpu, and its global64
+    (:func:`run_global64`); baseline config 6 on 16 boxes."""
     import torch
 
     from wavelet_tpu_torch import bench
@@ -1869,6 +1875,7 @@ def run_measurement_programs() -> dict:
             raise AssertionError(f"(m) e2e {arch} differs on cuda and cpu")
     _expect_launches("m, e2e cpu", e2e["cpu"].pop("launches"), {})
     out["e2e"] = e2e
+    out["e2e_global64"] = run_global64(bench_e2e)
 
     _reset_launches()
     t0 = time.perf_counter()
@@ -1883,6 +1890,76 @@ def run_measurement_programs() -> dict:
     out["baseline_config6"] = {"s": time.perf_counter() - t0, "rows": rows,
                                "launches": _launches()}
     return out
+
+
+# (m)'s global64: box, global with the default globalcache, global with
+# globalcache=0; the kernels each mode launches on the card (K1 alone, K6
+# alone, K6 alone and twice as often: pass 2 transforms again)
+GLOBAL64_ARGS = ["--configs", "global64", "--boxes", "32", "--timesteps",
+                 "2", "--keep-files"]
+GLOBAL64_KERNELS = {"box": "haar_forward", "global_cached": "forward_hist",
+                    "global_uncached": "forward_hist"}
+
+
+def run_global64(bench_e2e) -> dict:
+    """(m)'s ``bench_e2e --configs global64`` on 2 timesteps of 32 boxes
+    of 64^3, on cuda and on cpu, each mode's launches counted from 0 just
+    before its ``compress_run`` and read just after: each mode's bundle
+    equal on the two devices (but for the sidecars that name the
+    dataset's directory), the global thresholds equal, the cache holding
+    both timesteps with the default budget and none without, and each
+    mode's kernels launched on the card alone (none on cpu)."""
+    compress_mod = bench_e2e.compress_mod
+    run = compress_mod.compress_run
+    res = {}
+    for dev in ("cuda", "cpu"):
+        launches = []
+
+        def counted(cfg, launches=launches):
+            _reset_launches()
+            stats = run(cfg)
+            launches.append(_launches())
+            return stats
+
+        compress_mod.compress_run = counted
+        t0 = time.perf_counter()
+        try:
+            r, _ = _quiet(bench_e2e.main, [
+                "--device", dev, "--root", WORK, "--out",
+                os.path.join(WORK, f"g64_{dev}.json"), *GLOBAL64_ARGS])
+        finally:
+            compress_mod.compress_run = run
+        res[dev] = {"s": time.perf_counter() - t0, "row": r["global64"],
+                    "launches": dict(zip(GLOBAL64_KERNELS, launches)),
+                    "run_dir": r["run_dir"]}
+    rows = [res[dev]["row"] for dev in ("cuda", "cpu")]
+    for mode in GLOBAL64_KERNELS:
+        trees = [{k: v for k, v in _tree(os.path.join(
+            res[dev]["run_dir"], "global64", f"arch_{mode}")).items()
+            if k not in ("runinfo.raw", "wtc-meta.json")}
+            for dev in ("cuda", "cpu")]
+        if sum(k.endswith(".wtb") for k in trees[0]) != 2 or \
+                trees[0] != trees[1]:
+            raise AssertionError(f"(m) global64 {mode}: bundles differ on "
+                                 "cuda and cpu")
+        thresholds = [row[mode]["global_threshold"] for row in rows]
+        if thresholds[0] != thresholds[1]:
+            raise AssertionError(f"(m) global64 {mode}: thresholds "
+                                 f"{thresholds} on cuda and cpu")
+    for row in rows:
+        cached = [row[m]["cached_timesteps"] for m in GLOBAL64_KERNELS]
+        if cached != [None, 2, 0]:
+            raise AssertionError(f"(m) global64 cached timesteps {cached}")
+    counts = res["cuda"]["launches"]
+    for mode, kernel in GLOBAL64_KERNELS.items():
+        _check_counts(f"m, global64 {mode}", counts[mode], {kernel: 1},
+                      never=[k for k in KERNELS if k != kernel])
+    if counts["global_uncached"]["forward_hist"] != \
+            2 * counts["global_cached"]["forward_hist"]:
+        raise AssertionError(f"(m) global64: uncached launches {counts}")
+    for mode, n in res.pop("cpu")["launches"].items():
+        _expect_launches(f"m, global64 cpu {mode}", n, {})
+    return res
 
 
 # (n): the host benches at small size.  The ragged run's --scale keeps all
@@ -2565,16 +2642,21 @@ def main() -> int:
         print(f"end to end ({name}, {what}; {card}; {secs:.1f} s): "
               + json.dumps(res))
     # (m)'s launches follow its timing loops' reps and iterations: they are
-    # checked in (m) itself and left out of the kernels line
+    # checked in (m) itself and left out of the kernels line, but for
+    # global64's, which come from its three compress_run calls alone
     t0 = time.perf_counter()
     res = run_measurement_programs()
     secs = time.perf_counter() - t0
+    for counts in res["e2e_global64"]["cuda"]["launches"].values():
+        for k, v in counts.items():
+            launches[k] += v
     print(f"wall (m): {secs:.1f} s")
     print(f"end to end (m, the measurement programs: bench at [128, 64^3], "
-          f"scaling over [cuda:0, cuda:0], e2e on 32 boxes, baseline config "
+          f"scaling over [cuda:0, cuda:0], e2e cube64 on 32 boxes and "
+          f"global64 on 2 x 32 boxes in its three modes, baseline config "
           f"6; {card}; {secs:.1f} s): " + json.dumps(res))
-    # (n)'s launches, like (m)'s, are checked in (n) and left out of the
-    # kernels line
+    # (n)'s launches, like those of (m)'s timed runs, are checked in (n)
+    # and left out of the kernels line
     t0 = time.perf_counter()
     res = run_host_benches(kind)
     secs = time.perf_counter() - t0

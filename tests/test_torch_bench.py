@@ -9,8 +9,10 @@ speed-of-light guard runs on a fake clock.  The datasets of
 ``scripts/bench_e2e.py`` and ``scripts/measure_baseline.py`` are the JAX
 scripts' byte for byte; the e2e bundle and config 4's archives are
 ``wavelet_tpu``'s; the scaling bench's meshes of one and two CPU entries
-give the same step outputs.  Without a card and without ``--device cpu``
-every program exits non-zero.
+give the same step outputs.  The e2e bench's ``global64`` writes each
+mode's dataset seed for seed as the JAX script does, and each mode's bundle
+is ``wavelet_tpu``'s.  Without a card and without ``--device cpu`` every
+program exits non-zero.
 """
 
 import dataclasses
@@ -286,6 +288,8 @@ def test_e2e_summary_is_the_given_artifact(tmp_path):
     ("wavelet_tpu_torch.scripts.scaling_bench", ["--devices", "2",
                                                  "--repeat"]),
     ("wavelet_tpu_torch.scripts.measure_baseline", ["--only", "6"]),
+    ("wavelet_tpu_torch.scripts.bench_e2e", ["--configs", "global64",
+                                             "--boxes", "2"]),
 ])
 def test_programs_without_a_card_exit_non_zero(tmp_path, module, args):
     """The default device is the card: without one each program raises,
@@ -373,6 +377,132 @@ def test_e2e_run_removes_only_what_it_made(tmp_path):
     assert not os.path.exists(res["run_dir"])
     assert sorted(os.listdir(tmp_path)) == ["cube64", "e2e.json"]
     assert (tmp_path / "cube64" / "mine.txt").read_text() == "x"
+
+
+@pytest.fixture(scope="module")
+def global_run(tmp_path_factory):
+    """``--configs global64 --boxes 2 --timesteps 2 --keep-files`` on the
+    CPU: (the configuration's directory, its row)."""
+    root = tmp_path_factory.mktemp("g64")
+    res = bench_e2e.main(["--device", "cpu", "--root", str(root), "--out",
+                          str(root / "e2e.json"), "--configs", "global64",
+                          "--boxes", "2", "--timesteps", "2",
+                          "--keep-files"])
+    with open(root / "e2e.json") as f:
+        assert json.load(f)["global64"] == json.loads(json.dumps(
+            res["global64"], default=float))
+    return type(root)(res["run_dir"]) / "global64", res["global64"]
+
+
+GLOBAL_MODES = [m for m, _ in bench_e2e.GLOBAL_MODES]
+
+
+def test_global64_datasets_are_the_jax_script_s(global_run, tmp_path):
+    """Mode ``mi``'s timestep ``t`` holds ``smooth_spiky_boxes(2, 64,
+    seed=100 * mi + 10 * t + 3)``, written as the JAX script writes it."""
+    root, _ = global_run
+    jscript = _jax_script("bench_e2e")
+    assert GLOBAL_MODES == ["box", "global_cached", "global_uncached"]
+    for mi, mode in enumerate(GLOBAL_MODES):
+        jdir = str(tmp_path / mode)
+        for t in range(2):
+            jscript.write_dataset(jdir, f"plt{600 + t:05d}",
+                                  jscript.smooth_spiky_boxes(
+                                      2, 64, seed=100 * mi + 10 * t + 3), 64)
+        want = tree_bytes(jdir)
+        assert len(want) == 6
+        assert tree_bytes(root / f"data_{mode}") == want, mode
+
+
+@pytest.mark.parametrize("mode", GLOBAL_MODES)
+def test_global64_bundles_are_wavelet_tpu_s(global_run, tmp_path,
+                                            monkeypatch, mode):
+    """Each mode's bundle byte for byte ``wavelet_tpu``'s ``compress_run``
+    of the JAX script's ``Config`` on the same dataset, with the default
+    cache budget; its cached timesteps and threshold are JAX's too."""
+    root, row = global_run
+    monkeypatch.delenv("WAVELET_TPU_GLOBALCACHE", raising=False)
+    extra = dict(bench_e2e.GLOBAL_MODES)[mode]
+    jdir = str(tmp_path / "jax") + os.sep
+    jstats = j_compress(JConfig(
+        data_dir=str(root / f"data_{mode}"), min_time="plt00600",
+        max_time="plt00601", min_level=0, max_level=0, components=["f"],
+        keep=0.999, compressed_dir=jdir, codec="raw", archive="bundle",
+        prefetch=1, **extra))
+    want = tree_bytes(jdir)
+    assert sum(k.endswith(".wtb") for k in want) == 2
+    assert tree_bytes(root / f"arch_{mode}") == want
+    assert row[mode]["cached_timesteps"] == jstats.get(
+        "global_cached_timesteps")
+    assert row[mode]["global_threshold"] == jstats.get("global_threshold")
+
+
+def test_global64_row_carries_the_jax_script_s_fields(global_run):
+    """The JAX row's fields, the stage seconds and bytes the cube rows
+    carry, and the cache at work: box mode caches nothing (null, as in
+    the JAX row), the cached mode both timesteps, the uncached none."""
+    _, row = global_run
+    assert {k: row[k] for k in ("dim", "boxes_per_timestep", "timesteps",
+                                "input_bytes", "codec", "archive")} == {
+        "dim": 64, "boxes_per_timestep": 2, "timesteps": 2,
+        "input_bytes": 2 * 2 * 64 ** 3 * 4, "codec": "raw",
+        "archive": "bundle"}
+    for mode in GLOBAL_MODES:
+        assert set(row[mode]) == {
+            "wall_seconds", "e2e_measured_gbps", "cached_timesteps",
+            *bench_e2e.STAGE_KEYS, "global_threshold"}, mode
+        assert row[mode]["wall_seconds"] > 0
+        assert row[mode]["e2e_measured_gbps"] > 0
+        assert row[mode]["device_to_host_bytes"] == row["input_bytes"]
+    assert [row[m]["cached_timesteps"] for m in GLOBAL_MODES] == [None, 2, 0]
+    assert row["box"]["global_threshold"] is None
+    assert all(row[m]["global_threshold"] > 0 for m in GLOBAL_MODES[1:])
+    walls = [row[m]["wall_seconds"] for m in GLOBAL_MODES]
+    assert row["cached_vs_box_wall_ratio"] == round(walls[1] / walls[0], 3)
+    assert row["cached_vs_uncached_speedup"] == round(walls[2] / walls[1], 3)
+
+
+def test_global64_removes_each_mode_s_dataset(tmp_path, monkeypatch):
+    """Without ``--keep-files`` each mode's dataset is gone before the next
+    mode runs, the run's directory at the end, and what was under
+    ``--root`` before stays as it was."""
+    (tmp_path / "global64").mkdir()
+    (tmp_path / "global64" / "mine.txt").write_text("x")
+    seen = []
+    run = bench_e2e.compress_mod.compress_run
+
+    def spy(cfg):
+        seen.append(sorted(os.listdir(os.path.dirname(cfg.data_dir))))
+        return run(cfg)
+
+    monkeypatch.setattr(bench_e2e.compress_mod, "compress_run", spy)
+    res = bench_e2e.main(["--device", "cpu", "--root", str(tmp_path),
+                          "--out", str(tmp_path / "e2e.json"), "--configs",
+                          "global64", "--boxes", "1", "--timesteps", "1"])
+    assert seen == [["data_box"],
+                    ["arch_box", "data_global_cached"],
+                    ["arch_box", "arch_global_cached",
+                     "data_global_uncached"]]
+    assert not os.path.exists(res["run_dir"])
+    assert sorted(os.listdir(tmp_path)) == ["e2e.json", "global64"]
+    assert (tmp_path / "global64" / "mine.txt").read_text() == "x"
+
+
+@pytest.mark.parametrize("keep_files", [False, True])
+def test_global64_checks_free_space_first(tmp_path, monkeypatch, keep_files):
+    """Too little room for one mode's f64 dataset and the bundles (for all
+    three datasets under ``--keep-files``) is an error before anything is
+    written."""
+    dim, n, t = bench_e2e.CONFIGS["global64"]
+    input_bytes = t * n * dim ** 3 * 4
+    datasets = 3 if keep_files else 1
+    free = input_bytes * 2 * datasets        # no room for the bundles
+    monkeypatch.setattr(bench_e2e.shutil, "disk_usage",
+                        lambda p: type("U", (), {"free": free})())
+    with pytest.raises(OSError, match="the global64 run needs"):
+        bench_e2e.run_global_config("global64", dim, n, t, str(tmp_path),
+                                    CPU, keep_files)
+    assert os.listdir(tmp_path / "global64") == []
 
 
 def test_baseline_datasets_are_the_jax_script_s(tmp_path):

@@ -1,8 +1,11 @@
 """Compressed-archive byte formats: sidecar files and per-box ``.xz`` payloads.
 
-The port's own copy of ``wavelet_tpu/io/archive.py``,
-unchanged but for its imports, so that the port imports nothing of
-``wavelet_tpu``.
+The port's own copy of ``wavelet_tpu/io/archive.py``, so that the port
+imports nothing of ``wavelet_tpu``.  It differs in one function:
+:func:`xz_compress` writes liblzma's buffer-encoder bytes for every
+payload, where ``wavelet_tpu``'s Python writer departs from them (and so
+from its own native writer and the C++ tool) on incompressible payloads
+above 64 KiB and on 16,288-16,379-byte payloads under the delta filter.
 
 Byte-compatible with the reference so either tool can read the other's
 archives (the compatibility contract of SURVEY.md §4.2):
@@ -22,7 +25,8 @@ compressor.cpp:55-80):
     int32      number of RLE pairs
     repeat     { int32 zeros_before, float32 value }
 
-LZMA parameters match ``lzma_easy_encoder(6, LZMA_CHECK_CRC64)``.
+LZMA parameters and container bytes match
+``lzma_easy_buffer_encode(6, LZMA_CHECK_CRC64)``.
 
 Note: the reference computes a ``need32`` flag but never serializes it
 (box-structs.h:69, SURVEY.md §4.2 quirk); the format has no such field and we
@@ -120,10 +124,14 @@ def pack_preset(preset: int, delta: int = 0) -> int:
 
 
 def xz_compress(payload: bytes, preset: int = 6) -> bytes:
-    """xz container, LZMA2 CRC64 — at preset 6, byte-matching
-    lzma_easy_encoder(6, CRC64); other presets are an extension (recorded
-    in wtc-meta.json; the xz container itself is self-describing so any
-    xz reader, including the reference, still decodes them).
+    """xz container, LZMA2 CRC64: the bytes of liblzma's buffer encoder
+    (``lzma_easy_buffer_encode(p, CRC64)``, or ``lzma_stream_buffer_encode``
+    over the delta + LZMA2 chain), as the native codec
+    (native/wtc_codec.cpp:274-293) and the reference's compressor.cpp call
+    it.  Preset 6 is the reference's; other presets are an extension
+    (recorded in wtc-meta.json; the xz container itself is
+    self-describing so any xz reader, including the reference, still
+    decodes them).
 
     ``preset`` is the :func:`pack_preset` word: a nonzero high byte
     prepends xz's delta filter at that byte distance.  ``xzdelta=8``
@@ -141,7 +149,7 @@ def xz_compress(payload: bytes, preset: int = 6) -> bytes:
         filters = [{"id": lzma.FILTER_LZMA2, "preset": p}]
     blob = lzma.compress(payload, format=lzma.FORMAT_XZ,
                          check=lzma.CHECK_CRC64, filters=filters)
-    return _reframe_with_block_sizes(blob)
+    return _reframe_with_block_sizes(blob, payload)
 
 
 def _read_varint(b: bytes, pos: int):
@@ -165,17 +173,50 @@ def _varint(v: int) -> bytes:
     return bytes(out)
 
 
-def _reframe_with_block_sizes(blob: bytes) -> bytes:
-    """Rewrite a single-block xz stream so its block header stores the
-    compressed + uncompressed sizes — the layout ``lzma_easy_buffer_
-    encode`` produces (the REFERENCE's encoder, compressor.cpp:250-291,
-    and our native backend's).  stdlib ``lzma.compress`` streams, so it
-    omits the sizes; without this reframe the python backend's containers
-    decode identically everywhere but differ byte-wise from both the
-    native backend and the C++ tool (found by the round-5 interop
-    matrix).  The compressed bits, check, and every filter entry are
-    copied verbatim — only the block header, index and footer are
-    re-derived per the xz spec.  Anything unexpected (multi-block,
+# LZMA2's largest uncompressed chunk, and the stored block's filter entry:
+# LZMA2 (id 0x21), one property byte, 0x00 = LZMA_DICT_SIZE_MIN
+_LZMA2_CHUNK_MAX = 1 << 16
+_STORED_FILTER = b"\x21\x01\x00"
+
+
+def _lzma2_bound(n: int) -> int:
+    """liblzma's ``lzma2_bound`` (block_buffer_encoder.c): ``n`` bytes as
+    stored LZMA2 chunks, 3 header bytes a chunk, plus the end marker."""
+    return n + 3 * -(-n // _LZMA2_CHUNK_MAX) + 1
+
+
+def _stored_lzma2(payload: bytes) -> bytes:
+    """liblzma's ``block_encode_uncompressed`` chunks: control 0x01 (a
+    dictionary reset) for the first, 0x02 after it, the big-endian size
+    less one, the bytes; then the 0x00 end marker."""
+    out = bytearray()
+    for s in range(0, len(payload), _LZMA2_CHUNK_MAX):
+        chunk = payload[s:s + _LZMA2_CHUNK_MAX]
+        out += bytes([0x01 if s == 0 else 0x02])
+        out += (len(chunk) - 1).to_bytes(2, "big") + chunk
+    out.append(0x00)
+    return bytes(out)
+
+
+def _reframe_with_block_sizes(blob: bytes, payload: bytes) -> bytes:
+    """Rewrite stdlib ``lzma.compress``'s single-block xz stream of
+    ``payload`` into the layout ``lzma_block_buffer_encode`` produces
+    (the REFERENCE's encoder, compressor.cpp:250-291, and the native
+    backend's).  Two things differ, and only the block header, its data
+    where the second applies, the index and the footer are re-derived
+    per the xz spec:
+
+    - The buffer encoder's block header stores the compressed and
+      uncompressed sizes; stdlib streams, so it omits them (found by the
+      round-5 interop matrix).
+    - Where the LZMA2 data exceeds ``lzma2_bound(n)`` (an incompressible
+      payload: LZMA2 split it into more stored chunks than that many
+      bytes need), the buffer encoder writes the block again as stored
+      chunks, under LZMA2 alone at ``LZMA_DICT_SIZE_MIN``, also when the
+      delta filter was asked for.
+
+    The check, and otherwise the compressed bits and every filter entry,
+    are copied verbatim.  Anything unexpected (multi-block,
     already-sized, foreign check) is returned unchanged."""
     import binascii
 
@@ -210,16 +251,19 @@ def _reframe_with_block_sizes(blob: bytes) -> bytes:
             q += props
         filt_region = blob[bh_start + 2 : q]
         comp_size = unpadded - old_bhs - check_size
-        body = blob[bh_start + old_bhs : bh_start + old_bhs
-                    + comp_size + (-comp_size % 4) + check_size]
+        data_start = bh_start + old_bhs
+        data = blob[data_start : data_start + comp_size]
+        check = blob[data_start + comp_size + (-comp_size % 4) :][
+            :check_size]
+        bound = _lzma2_bound(uncomp)
+        if comp_size > bound:
+            data, comp_size = _stored_lzma2(payload), bound
+            flags, filt_region = 0x00, _STORED_FILTER
         # new block header: flags|0xC0 + size varints + filters + pad +
-        # crc.  liblzma's buffer encoder sizes the header BEFORE
-        # compressing — it reserves varint space for
-        # lzma_block_buffer_bound(uncomp) (= align4(n) + 96 + 3*(n>>16),
-        # probed from the system liblzma) and zero-pads whatever the
-        # real, smaller compressed-size varint leaves unused; minimal
-        # headers would differ from the reference tool's bytes.
-        bound = (uncomp + 3) // 4 * 4 + 96 + 3 * (uncomp >> 16)
+        # crc.  The buffer encoder sizes the header BEFORE compressing,
+        # with the compressed-size varint of lzma2_bound(n), and zero-pads
+        # whatever the real, smaller varint leaves unused; minimal headers
+        # would differ from the reference tool's bytes.
         reserved = (2 + len(_varint(bound)) + len(_varint(uncomp))
                     + len(filt_region) + 4)
         new_bhs = (reserved + 3) // 4 * 4
@@ -228,6 +272,7 @@ def _reframe_with_block_sizes(blob: bytes) -> bytes:
         hdr = bytes([new_bhs // 4 - 1]) + core
         hdr += b"\x00" * (new_bhs - 4 - len(hdr))
         hdr += binascii.crc32(hdr).to_bytes(4, "little")
+        body = data + b"\x00" * (-comp_size % 4) + check
         # new index + footer
         new_idx = (b"\x00" + _varint(1)
                    + _varint(new_bhs + comp_size + check_size)

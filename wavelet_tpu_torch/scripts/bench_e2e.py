@@ -3,7 +3,8 @@
     python -m wavelet_tpu_torch.scripts.bench_e2e [--device cuda|cpu]
         [--root DIR]
         [--out bench_results_torch/e2e_compress.json]
-        [--configs cube64,cube128] [--boxes N] [--timesteps T] [--keep-files]
+        [--configs cube64,cube128,global64] [--boxes N] [--timesteps T]
+        [--keep-files]
 
 The full pipeline — plotfile read -> device codec -> D2H -> host pack
 (``codec=raw archive=bundle keep=0.999``) -> bundle write — on synthetic
@@ -37,6 +38,15 @@ the host pack (one planned batch of this data packed alone) — against the
 measured wall.  ``os.sync()`` runs before every variant, and each row
 records how long the f64 dataset took to write: host file I/O varies by
 host.  On ``--device cpu`` there is no link, and the link fields are null.
+
+``global64`` (:func:`run_global_config`) times ``compress_run`` on 64^3
+boxes in three modes, each on data of its own: box thresholding, then
+``thresholdmode=global keepfraction=0.01`` with the default
+``globalcache`` (the coefficients of pass 1 kept in host RAM for pass 2),
+then the same with ``globalcache=0`` (pass 2 reads and transforms every
+timestep again).  ``cached_vs_box_wall_ratio`` says how close the cache
+brings a global run to a box run, ``cached_vs_uncached_speedup`` what it
+saves.
 """
 
 from __future__ import annotations
@@ -61,11 +71,21 @@ from wavelet_tpu_torch.runtime import batching, engine
 from wavelet_tpu_torch.runtime.mesh import resolve_device
 from wavelet_tpu_torch.scripts import harness
 
-__all__ = ["CONFIGS", "smooth_spiky_boxes", "write_dataset", "run_config",
-           "main"]
+__all__ = ["CONFIGS", "GLOBAL_MODES", "smooth_spiky_boxes", "write_dataset",
+           "run_config", "run_global_config", "main"]
 
 # label -> (box edge, boxes per timestep, timesteps): 1 GiB of f32 each
-CONFIGS = {"cube64": (64, 512, 2), "cube128": (128, 64, 2)}
+CONFIGS = {"cube64": (64, 512, 2), "cube128": (128, 64, 2),
+           "global64": (64, 512, 2)}
+# global64's modes in the JAX script's order: (name, extra Config keys)
+GLOBAL_MODES = (
+    ("box", {}),
+    ("global_cached", {"threshold_mode": "global", "keep_fraction": 0.01}),
+    ("global_uncached", {"threshold_mode": "global", "keep_fraction": 0.01,
+                         "global_cache_bytes": 0}))
+# the pipeline's own stage seconds and bytes each global64 mode reports
+STAGE_KEYS = ("read_seconds", "device_seconds", "pack_wait_seconds",
+              "device_to_host_bytes")
 OUT = os.path.join("bench_results_torch", "e2e_compress.json")
 KEEP = 0.999
 
@@ -172,19 +192,26 @@ def _link_fields(v: dict, wall: float, input_bytes: int, h2d: int, d2h: int,
     return link_s
 
 
-def run_config(label: str, dim: int, n_boxes: int, n_times: int, root: str,
-               dev: torch.device, keep_files: bool = False) -> dict:
-    """One configuration's row: both compress variants and the decompress
-    of the streaming archive, under ``root/label``, which must not exist."""
+def _config_root(root: str, label: str, need: int) -> str:
+    """Make ``root/label``, which must not exist, for a run that writes
+    up to ``need`` bytes there; refuse before writing when the file
+    system has less room."""
     root = os.path.join(root, label)
     os.makedirs(root)
-    input_bytes = n_times * n_boxes * dim ** 3 * 4
-    # two f64 datasets, then the f32 plotfiles of the decompress
-    need = input_bytes * 5 + (64 << 20)
     free = shutil.disk_usage(root).free
     if free < need:
         raise OSError(f"{root}: {free} bytes free, the {label} run needs "
                       f"{need}; pass --root on a larger file system")
+    return root
+
+
+def run_config(label: str, dim: int, n_boxes: int, n_times: int, root: str,
+               dev: torch.device, keep_files: bool = False) -> dict:
+    """One configuration's row: both compress variants and the decompress
+    of the streaming archive, under ``root/label``, which must not exist."""
+    input_bytes = n_times * n_boxes * dim ** 3 * 4
+    # two f64 datasets, then the f32 plotfiles of the decompress
+    root = _config_root(root, label, input_bytes * 5 + (64 << 20))
     t0 = time.perf_counter()
     # distinct data per variant, as the JAX bench writes it
     for t in range(n_times):
@@ -286,6 +313,53 @@ def run_config(label: str, dim: int, n_boxes: int, n_times: int, root: str,
     return row
 
 
+def run_global_config(label: str, dim: int, n_boxes: int, n_times: int,
+                      root: str, dev: torch.device,
+                      keep_files: bool = False) -> dict:
+    """``global64``'s row: the wall of ``compress_run`` in each of
+    :data:`GLOBAL_MODES`, on data of its own (seed ``100 * mode + 10 * t +
+    3``), under ``root/label``, which must not exist.  Each mode's dataset
+    is removed after its run unless ``keep_files``."""
+    input_bytes = n_times * n_boxes * dim ** 3 * 4
+    # one mode's f64 dataset (all three with keep_files) and three bundles
+    # of ~1% kept pairs, 8 bytes each: 2% of the f32 bytes, reserved 6%
+    root = _config_root(root, label, (
+        input_bytes * 2 * (len(GLOBAL_MODES) if keep_files else 1)
+        + len(GLOBAL_MODES) * input_bytes // 16 + (64 << 20)))
+    row = {"dim": dim, "boxes_per_timestep": n_boxes, "timesteps": n_times,
+           "input_bytes": input_bytes, "codec": "raw", "archive": "bundle"}
+    for mi, (name, extra) in enumerate(GLOBAL_MODES):
+        data = os.path.join(root, f"data_{name}")
+        for t in range(n_times):
+            write_dataset(data, _step(t), smooth_spiky_boxes(
+                n_boxes, dim, seed=100 * mi + 10 * t + 3), dim)
+        cfg = common.Config(
+            data_dir=data, min_time=_step(0), max_time=_step(n_times - 1),
+            min_level=0, max_level=0, components=["f"], keep=KEEP,
+            compressed_dir=os.path.join(root, f"arch_{name}") + os.sep,
+            codec="raw", archive="bundle", prefetch=1, device=str(dev),
+            **extra)
+        os.sync()
+        t0 = time.perf_counter()
+        stats = compress_mod.compress_run(cfg)
+        wall = time.perf_counter() - t0
+        row[name] = {"wall_seconds": round(wall, 3),
+                     "e2e_measured_gbps": round(input_bytes / 1e9 / wall, 4),
+                     "cached_timesteps": stats.get("global_cached_timesteps"),
+                     **{k: stats[k] for k in STAGE_KEYS},
+                     "global_threshold": stats.get("global_threshold")}
+        if not keep_files:
+            shutil.rmtree(data)
+    walls = {name: row[name]["wall_seconds"] for name, _ in GLOBAL_MODES}
+    row["cached_vs_box_wall_ratio"] = round(
+        walls["global_cached"] / walls["box"], 3)
+    row["cached_vs_uncached_speedup"] = round(
+        walls["global_uncached"] / walls["global_cached"], 3)
+    if not keep_files:
+        shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m wavelet_tpu_torch.scripts.bench_e2e",
@@ -297,7 +371,8 @@ def parse_args(argv=None):
                          "(default: the temporary directory)")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--configs", default=",".join(CONFIGS),
-                    help="comma-separated labels of CONFIGS")
+                    help="comma-separated labels of CONFIGS: cube64, "
+                         "cube128, global64 (default: all three)")
     ap.add_argument("--boxes", type=int, default=None,
                     help="boxes per timestep (default: the config's)")
     ap.add_argument("--timesteps", type=int, default=None)
@@ -325,7 +400,8 @@ def main(argv=None) -> dict:
     try:
         for label in a.configs.split(","):
             dim, n_boxes, n_times = CONFIGS[label]
-            results[label] = run_config(
+            run = run_global_config if label == "global64" else run_config
+            results[label] = run(
                 label, dim, a.boxes or n_boxes, a.timesteps or n_times,
                 run_dir, dev, a.keep_files)
     finally:
