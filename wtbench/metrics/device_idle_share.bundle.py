@@ -1,0 +1,6 @@
+"""``device_idle_share.compress``, read in the bundle cell, where it is filed under
+``archive_ratio`` (see PERF.md)."""
+
+from wtbench.metrics import load
+
+read = load("device_idle_share.compress")

@@ -1,0 +1,6 @@
+"""``fwd_kernel_roofline.compress``, read in the bundle cell, where it is filed under
+``archive_ratio`` (see PERF.md)."""
+
+from wtbench.metrics import load
+
+read = load("fwd_kernel_roofline.compress")
