@@ -14,10 +14,10 @@ It keeps the JAX package's module names, so each part has a counterpart:
 - ``api``, ``cli``  the entry points.
 
 Host-side code with no backend in it (``io``, ``native``, ``core/rle``,
-``core/metrics``, ``runtime/batching``, ``runtime/debug.phase_timer``,
-``pipeline/check``) is a copy of the JAX
-package's, unchanged but for its imports: nothing here imports jax or
-``wavelet_tpu``.
+``core/metrics``, ``runtime/batching``, ``pipeline/check``) is a copy of
+the JAX package's, unchanged but for its imports: nothing here imports jax
+or ``wavelet_tpu``.  ``runtime/debug.phase_timer`` logs the same lines as
+the JAX package's, and is one of the port's spans (``runtime/debug``).
 """
 
 __version__ = "0.1.0"

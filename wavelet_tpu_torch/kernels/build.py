@@ -21,7 +21,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from wavelet_tpu_torch.runtime.debug import span
 
 __all__ = ["NVCC_FLAGS", "library", "library_path", "build_seconds",
            "build_log"]
@@ -135,14 +136,14 @@ def library():
     with _lock:
         if _lib is not None:
             return _lib
-        t0 = time.perf_counter()
-        srcs = _sources()
-        path = _lib_path(srcs)
-        if not os.path.exists(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            build_log = _build(srcs, path)
-        lib = ctypes.CDLL(path)
-        _bind(lib)
+        with span("kernels.build") as sp:
+            srcs = _sources()
+            path = _lib_path(srcs)
+            if not os.path.exists(path):
+                os.makedirs(_BUILD_DIR, exist_ok=True)
+                build_log = _build(srcs, path)
+            lib = ctypes.CDLL(path)
+            _bind(lib)
         _lib = lib
-        build_seconds = time.perf_counter() - t0
+        build_seconds = sp.seconds
         return _lib

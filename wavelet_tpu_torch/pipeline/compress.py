@@ -52,13 +52,12 @@ import concurrent.futures as cf
 import functools
 import logging
 import os
-import time
 
 import numpy as np
 
 from wavelet_tpu_torch.io import archive, plotfile
 from wavelet_tpu_torch.runtime import batching
-from wavelet_tpu_torch.runtime.debug import phase_timer
+from wavelet_tpu_torch.runtime.debug import phase_timer, span
 from wavelet_tpu_torch.core import threshold
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
@@ -151,24 +150,24 @@ def _pack_overlapped(batches, device_step, out_dir: str,
     packs the ``n_packed`` items the step chose and returns the bytes it
     wrote.  One pack worker keeps bundle member order deterministic.  Adds
     to ``stats``: files, bytes, and the seconds spent in the device step
-    (H2D, kernels, D2H, thresholds) and waiting on the pack thread."""
+    (H2D, kernels, D2H, thresholds; span ``compress.device_step``, with its
+    thread CPU as ``device_cpu_seconds``) and waiting on the pack thread
+    (``compress.pack_wait``)."""
     with cf.ThreadPoolExecutor(1) as pack_pool:
         pending = None
         for batch in batches:
-            t0 = time.perf_counter()
-            pack, n_packed = device_step(batch)
-            t1 = time.perf_counter()
-            if pending is not None:
-                stats["output_bytes"] += pending.result()
-            stats["device_seconds"] += t1 - t0
-            stats["pack_wait_seconds"] += time.perf_counter() - t1
+            with span("compress.device_step", stats, "device_seconds",
+                      cpu=True, args=(*batch.shape, len(batch.items))):
+                pack, n_packed = device_step(batch)
+            with span("compress.pack_wait", stats, "pack_wait_seconds"):
+                if pending is not None:
+                    stats["output_bytes"] += pending.result()
             pending = pack_pool.submit(pack, out_dir)
             stats["files"] += n_packed
             stats["input_bytes"] += n_packed * int(np.prod(batch.shape)) * 4
         if pending is not None:
-            t1 = time.perf_counter()
-            stats["output_bytes"] += pending.result()
-            stats["pack_wait_seconds"] += time.perf_counter() - t1
+            with span("compress.pack_wait", stats, "pack_wait_seconds"):
+                stats["output_bytes"] += pending.result()
 
 
 def _owned_subset(items, owned):
@@ -311,13 +310,13 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
         keep_t = cache_used + t_bytes <= budget
         cbs = []
         for batch in batches:
-            t0 = time.perf_counter()
             # a giant batch holds every process's giant items: each counts
             # in the histogram on its owner only
-            cb, h = eng.forward_hist_shapebatch(
-                batch, hist_items=_owned_subset(batch.items, owned),
-                fetch_coeffs=keep_t)
-            stats["device_seconds"] += time.perf_counter() - t0
+            with span("compress.device_step", stats, "device_seconds",
+                      cpu=True, args=(*batch.shape, len(batch.items))):
+                cb, h = eng.forward_hist_shapebatch(
+                    batch, hist_items=_owned_subset(batch.items, owned),
+                    fetch_coeffs=keep_t)
             hist += h
             if keep_t:
                 cbs.append(cb)
@@ -373,22 +372,30 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
                                       subset=subset), n_packed)
 
         _pack_overlapped(batches, step, cfg.compressed_dir, stats)
-        bundle_bytes += packer.close_bundles(t)
+        bundle_bytes += _close(packer, stats, t)
     return bundle_bytes
 
 
+def _close(packer, stats: dict, t: int | None = None) -> int:
+    """Close timestep ``t``'s bundles (all: None), fsync included; ->
+    their bytes."""
+    with span("compress.close", stats, "close_seconds"):
+        return packer.close_bundles(t)
+
+
 def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
-                        mesh=None) -> dict:
+                        stats: dict, mesh=None) -> None:
     """One-timestep-at-a-time compression: read -> device codec -> host
-    pack -> free.  Peak host memory is bounded by one timestep (two with
-    ``prefetch=1``), plus the ``globalcache`` budget in global mode."""
+    pack -> free, adding to ``stats``.  Peak host memory is bounded by one
+    timestep (two with ``prefetch=1``), plus the ``globalcache`` budget in
+    global mode."""
     eng = engine.CodecEngine(device=cfg.device, scales=cfg.scales, mesh=mesh,
                              giant_box_bytes=cfg.giant_box_bytes,
-                             giant_mesh_mode=cfg.giant_mesh)
+                             giant_mesh_mode=cfg.giant_mesh, stats=stats)
     packer = engine.HostPacker(payload=cfg.payload, codec=cfg.codec,
                                xz_preset=cfg.xz_preset,
                                xz_delta=cfg.xz_delta,
-                               archive_format=cfg.archive)
+                               archive_format=cfg.archive, stats=stats)
     have = (_have_index(cfg.compressed_dir, cfg.archive)
             if cfg.resume else None)
     # giant items are collective when giant boxes split across processes:
@@ -398,7 +405,6 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
     giant_pred = ((lambda dims: eng.giant_ok(tuple(dims))) if crosshost
                   else None)
 
-    stats = _new_stats()
     ncomp = len(meta.comp_idxs)
     bases = np.concatenate(
         [[0], np.cumsum([sum(meta.counts[t]) * ncomp
@@ -419,21 +425,22 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
         if (bases[t + 1] <= lo or bases[t] >= hi) and not (
                 crosshost and has_giant(t)):
             return [], None
-        t0 = time.perf_counter()
-        lv_boxes = [plotfile.read_level(meta.files[t], lev, meta.comp_idxs)
-                    for lev in meta.levels]
-        owned = set() if crosshost else None
-        items = list(_iter_timestep_items(meta, t, lv_boxes, lo, hi,
-                                          int(bases[t]), giant_pred, owned))
-        if resume_filter:
-            kept = [p for p in items
-                    if (crosshost and giant_pred(p[1].shape))
-                    or not _exists(cfg.compressed_dir, p[0], have)]
-            stats["skipped"] += len(items) - len(kept)
-            items = kept
-        batches = batching.plan_batches(items, pack_fn=eng.pack_factor,
-                                        pad_fn=eng.pad_multiple_for)
-        stats["read_seconds"] += time.perf_counter() - t0
+        with span("compress.read", stats, "read_seconds", args=(t,)):
+            lv_boxes = [plotfile.read_level(meta.files[t], lev,
+                                            meta.comp_idxs)
+                        for lev in meta.levels]
+            owned = set() if crosshost else None
+            items = list(_iter_timestep_items(meta, t, lv_boxes, lo, hi,
+                                              int(bases[t]), giant_pred,
+                                              owned))
+            if resume_filter:
+                kept = [p for p in items
+                        if (crosshost and giant_pred(p[1].shape))
+                        or not _exists(cfg.compressed_dir, p[0], have)]
+                stats["skipped"] += len(items) - len(kept)
+                items = kept
+            batches = batching.plan_batches(items, pack_fn=eng.pack_factor,
+                                            pad_fn=eng.pad_multiple_for)
         return batches, owned
 
     if cfg.threshold_mode == "global":
@@ -454,14 +461,13 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
                              cfg.compressed_dir, stats)
             # a finished timestep's bundle is closed right away: a crash
             # costs one timestep, like the per-file mode
-            bundle_bytes += packer.close_bundles(t)
+            bundle_bytes += _close(packer, stats, t)
     if stats["skipped"]:
         log.info("Resume: skipped %d already-compressed items",
                  stats["skipped"])
-    bundle_bytes += packer.close_bundles()
+    bundle_bytes += _close(packer, stats)
     if packer.archive_format == "bundle":
         stats["output_bytes"] = bundle_bytes
-    return stats
 
 
 def compress_collected(run: common.RunData, keep: float, out_dir: str,
@@ -478,10 +484,12 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
     magnitude threshold keeping ``keep_fraction`` of all coefficients,
     from the summed histogram).  In a multi-process run each process
     takes its ``process_local_slice`` of the items."""
+    stats = _new_stats()
     eng = engine.CodecEngine(device=device, scales=scales, mesh=mesh,
-                             giant_box_bytes=giant_box_bytes)
+                             giant_box_bytes=giant_box_bytes, stats=stats)
     packer = packer or engine.HostPacker(payload=payload,
-                                         archive_format=archive_format)
+                                         archive_format=archive_format,
+                                         stats=stats)
     items = list(_iter_workitems(run))
     if mesh_lib.process_count() > 1:
         items = items[mesh_lib.process_local_slice(len(items))]
@@ -528,10 +536,9 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
         return {"files": n_files, "input_bytes": in_bytes,
                 "output_bytes": out_bytes, "global_threshold": float(t),
                 "skipped": skipped}
-    stats = _new_stats()
     _pack_overlapped(batches, _box_step(eng, packer, keep, transfer, stats),
                      out_dir, stats)
-    bundle_bytes = packer.close_bundles()
+    bundle_bytes = _close(packer, stats)
     if packer.archive_format == "bundle":
         stats["output_bytes"] = bundle_bytes
     stats["skipped"] = skipped
@@ -551,10 +558,12 @@ def compress_run(cfg: common.Config, mesh=None) -> dict:
         log.info("%s", f)
 
     log.info("Processing data...")
+    stats = _new_stats()
     with phase_timer(
-            "preprocess",
+            "compress.setup",
             message=("Successfully processed data in %s seconds. "
-                     "Beginning compression...")) as pre:
+                     "Beginning compression..."),
+            sink=stats, key="preprocess_seconds"):
         meta = common.collect_run_meta(files, cfg.components, levels)
         os.makedirs(cfg.compressed_dir, exist_ok=True)
         write_sidecars_meta(meta, cfg.min_level, cfg.max_level,
@@ -568,9 +577,8 @@ def compress_run(cfg: common.Config, mesh=None) -> dict:
                            archive_format=cfg.archive)
 
     with phase_timer(
-            "compress", message="Compression completed in %s seconds.") as ph:
-        stats = _compress_streaming(cfg, meta, mesh)
+            "compress.run", message="Compression completed in %s seconds.",
+            sink=stats, key="compress_seconds") as ph:
+        _compress_streaming(cfg, meta, stats, mesh)
         ph.nbytes = stats["input_bytes"]
-    stats["preprocess_seconds"] = pre.seconds
-    stats["compress_seconds"] = ph.seconds
     return stats

@@ -37,13 +37,12 @@ from __future__ import annotations
 import concurrent.futures as cf
 import logging
 import os
-import time
 
 import numpy as np
 
 from wavelet_tpu_torch.io import archive, plotfile
 from wavelet_tpu_torch.runtime import batching
-from wavelet_tpu_torch.runtime.debug import phase_timer
+from wavelet_tpu_torch.runtime.debug import phase_timer, span
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
 from wavelet_tpu_torch.runtime import mesh as mesh_lib
@@ -117,9 +116,12 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
 
     Returns ``regen``: [lev][box] -> (C, X, Y, Z) float32 (``(C, X>>p,
     Y>>p, Z>>p)`` at ``preview=p``), and adds the
-    host-to-device bytes and the seconds of the host (unpack) and device
-    (H2D, inverse kernel, D2H) stages to ``stats``.  ``prefetch=1`` runs
-    bucket i+1's host stage behind bucket i's device inverse."""
+    host-to-device bytes and the seconds of the host (unpack; span
+    ``decompress.unpack``) and device (H2D, inverse kernel, D2H;
+    ``decompress.device_step``) stages, and of copying each bucket's
+    boxes into ``regen`` (``decompress.assemble``), to ``stats``.
+    ``prefetch=1`` runs bucket i+1's host stage behind bucket i's device
+    inverse."""
     buckets = {}
     for li in range(num_levels):
         for b in range(counts[t][li]):
@@ -135,33 +137,35 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
 
     def host_stage(j):
         dims, bucket_items = order[j]
-        t0 = time.perf_counter()
-        batch = _unpack_bucket(cfg, eng, packer, dims, bucket_items, arena)
-        stats["unpack_seconds"] += time.perf_counter() - t0
-        return batch
+        with span("decompress.unpack", stats, "unpack_seconds",
+                  args=(*dims, len(bucket_items))):
+            return _unpack_bucket(cfg, eng, packer, dims, bucket_items,
+                                  arena)
 
     def device_stage(j, prepared):
         dims, bucket_items = order[j]
         kind, payload, h2d = prepared
-        t0 = time.perf_counter()
-        if kind == "preview":
-            arr, h2d = eng.preview_shapebatch(payload, cfg.preview)
-            out_dims = tuple(arr.shape[1:])
-            item = arr.__getitem__
-        else:
-            if kind == "sparse":
-                out = eng.decompress_shapebatch_sparse(*payload)
+        with span("decompress.device_step", stats, "device_seconds",
+                  cpu=True, args=(*dims, len(bucket_items))):
+            if kind == "preview":
+                arr, h2d = eng.preview_shapebatch(payload, cfg.preview)
+                out_dims = tuple(arr.shape[1:])
+                item = arr.__getitem__
             else:
-                out = eng.decompress_shapebatch(payload)
-            out_dims = dims
-            item = out.item_view
-        stats["device_seconds"] += time.perf_counter() - t0
+                if kind == "sparse":
+                    out = eng.decompress_shapebatch_sparse(*payload)
+                else:
+                    out = eng.decompress_shapebatch(payload)
+                out_dims = dims
+                item = out.item_view
         stats["host_to_device_bytes"] += h2d
-        for i, it in enumerate(bucket_items):
-            if regen[it.level][it.box] is None:
-                regen[it.level][it.box] = np.zeros((ncomp,) + out_dims,
-                                                   dtype=np.float32)
-            regen[it.level][it.box][comp_pos[it.comp_idx]] = item(i)
+        with span("decompress.assemble", stats, "assemble_seconds",
+                  args=(*dims, len(bucket_items))):
+            for i, it in enumerate(bucket_items):
+                if regen[it.level][it.box] is None:
+                    regen[it.level][it.box] = np.zeros(
+                        (ncomp,) + out_dims, dtype=np.float32)
+                regen[it.level][it.box][comp_pos[it.comp_idx]] = item(i)
         # the device stage fetched its result above, so the input buffer
         # can be recycled for a later bucket's unpack (BufferArena contract)
         if arena is not None and kind in ("dense", "preview"):
@@ -185,8 +189,13 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
     """Generator over regenerated timesteps: yields
     ``(t, plotfile_name, regen, locations_t, dimensions_t, info, amrex)``
     one timestep at a time, holding only that timestep's boxes.  A
-    ``stats`` dict, if given, accumulates ``host_to_device_bytes`` and
-    the ``unpack_seconds`` / ``device_seconds`` of the two stages.  In a
+    ``stats`` dict, if given, accumulates ``host_to_device_bytes``, the
+    ``unpack_seconds`` / ``device_seconds`` of the two stages, the
+    ``assemble_seconds`` of copying boxes out, the engine's device-step
+    parts (``CodecEngine``: ``h2d_seconds``, ``launch_seconds``,
+    ``d2h_seconds``) and the packer's member counts (``HostPacker``:
+    ``unpack_cpu_seconds``, ``xz_decoded_bytes``,
+    ``xz_decode_cpu_seconds``).  In a
     multi-process run only the timesteps this process owns are yielded
     (under ``giantmesh=global`` every process still decodes the others:
     the giant inverse is collective), so writing every yielded timestep
@@ -296,13 +305,16 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
         log.info("Preview mode: regenerating the wavelet low band at "
                  "1/%d resolution per axis", f)
 
+    if stats is None:
+        stats = {}
     packer = engine.HostPacker(payload=meta.get("payload", "f32"),
                                codec=meta.get("codec", "xz"),
-                               archive_format=meta.get("archive", "files"))
+                               archive_format=meta.get("archive", "files"),
+                               stats=stats)
     eng = engine.CodecEngine(device=cfg.device,
                              scales=meta.get("scales", 1), mesh=mesh,
                              giant_box_bytes=cfg.giant_box_bytes,
-                             giant_mesh_mode=cfg.giant_mesh)
+                             giant_mesh_mode=cfg.giant_mesh, stats=stats)
     # timesteps are independent outputs (one plotfile directory each), so
     # each process of a multi-process run takes a contiguous slice; under
     # giantmesh=global it decodes them all (the giant inverse is a
@@ -312,16 +324,14 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
         sl = mesh_lib.process_local_slice(len(sel_times))
         if cfg.giant_mesh == "global":
             owned_times = set(sel_times[sl])
-            if stats is not None:
-                stats["owned_times"] = owned_times
+            stats["owned_times"] = owned_times
         else:
             sel_times = sel_times[sl]
     arena = batching.BufferArena()   # same shape buckets recur every step
-    if stats is None:
-        stats = {}
     stats.setdefault("host_to_device_bytes", 0)
     stats.setdefault("unpack_seconds", 0.0)
     stats.setdefault("device_seconds", 0.0)
+    stats.setdefault("assemble_seconds", 0.0)
     for t in sel_times:
         # timestep boundary: the link is quiescent here (the prefetch
         # worker only writes plotfiles), so a stale transfer=auto probe
@@ -364,8 +374,9 @@ def decompress_run(cfg: common.Config, mesh=None) -> dict:
     num_levels = 0
     stats: dict = {"write_seconds": 0.0}
     with phase_timer(
-            "decompress",
-            message="Decompression completed in %s seconds.") as ph, \
+            "decompress.run",
+            message="Decompression completed in %s seconds.",
+            sink=stats, key="decompress_seconds"), \
             cf.ThreadPoolExecutor(1) as write_pool:
         # prefetch=1: timestep t's plotfile write runs on the worker while
         # t+1 decodes; the single worker keeps writes ordered
@@ -388,23 +399,21 @@ def decompress_run(cfg: common.Config, mesh=None) -> dict:
                    # the Header emits one level-steps token per entry
                    amrex.level_steps[t][:num_levels],
                    cfg.out_precision)
-            t0 = time.perf_counter()
-            if cfg.prefetch > 0:
-                if pending is not None:
-                    pending.result()
-                pending = write_pool.submit(*job)
-            else:
-                job[0](*job[1:])
-            stats["write_seconds"] += time.perf_counter() - t0
+            with span("decompress.write", stats, "write_seconds"):
+                if cfg.prefetch > 0:
+                    if pending is not None:
+                        pending.result()
+                    pending = write_pool.submit(*job)
+                else:
+                    job[0](*job[1:])
             n_boxes += sum(len(per) for per in regen)
             n_times += 1
         if pending is not None:
-            t0 = time.perf_counter()
-            pending.result()
-            stats["write_seconds"] += time.perf_counter() - t0
+            with span("decompress.write", stats, "write_seconds"):
+                pending.result()
     log.info("Sucessfully wrote plotfiles.")
     stats.pop("owned_times", None)   # the iterator's write gate, no stat
-    stats.update({"decompress_seconds": ph.seconds, "times": n_times,
+    stats.update({"times": n_times,
                   "levels": stats.pop("levels_selected", num_levels),
                   "boxes": n_boxes})
     return stats

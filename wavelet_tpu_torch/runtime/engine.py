@@ -76,6 +76,7 @@ from wavelet_tpu_torch.io import archive, bundle
 from wavelet_tpu_torch.runtime import distributed
 from wavelet_tpu_torch.runtime import mesh as mesh_lib
 from wavelet_tpu_torch.runtime.batching import ShapeBatch
+from wavelet_tpu_torch.runtime.debug import span
 from wavelet_tpu_torch.runtime.mesh import resolve_device
 from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
                                        packed_cuda, pyramid_cuda)
@@ -175,7 +176,18 @@ class CodecEngine:
     ``giantmesh=global``) splits giant boxes over every process's entries;
     in a multi-process run every process then builds its engine at the
     same point (the global mesh is counted over gloo) and takes part in
-    every giant box's transform."""
+    every giant box's transform.
+
+    ``stats`` (a dict, by default the engine's own) receives the seconds
+    of the device step's parts as the calling thread sees them:
+    ``h2d_seconds`` (pageable host-to-device copies), ``launch_seconds``
+    (the kernel wrappers' calls), ``d2h_seconds`` (device-to-host copies,
+    which wait for the kernels), ``threshold_seconds`` (the host's
+    ``resolve_signed_absmax`` and ``exact_threshold32``) and
+    ``free_seconds`` (dropping the step's device tensors), each a
+    :func:`~wavelet_tpu_torch.runtime.debug.span` (``engine.h2d``,
+    ``engine.launch``, ``engine.d2h``, ``engine.threshold``,
+    ``engine.free``)."""
 
     # one box must fit the JAX halves kernels' VMEM block: the bound of the
     # halves route's packed shapes, kept so both packages pack alike
@@ -184,8 +196,9 @@ class CodecEngine:
     def __init__(self, device="cuda", scales: int = 1,
                  layout: str | None = None, mesh=None,
                  giant_box_bytes: int | None = None,
-                 giant_mesh_mode: str = "local"):
+                 giant_mesh_mode: str = "local", stats: dict | None = None):
         self.device = resolve_device(device)
+        self.stats = {} if stats is None else stats
         if mesh is not None:
             if any(d.type != self.device.type for d in mesh.devices):
                 raise ValueError(f"device={device} but the mesh holds "
@@ -447,9 +460,11 @@ class CodecEngine:
         return torch.from_numpy(np.ascontiguousarray(data, np.float32)).to(
             self.device if device is None else device)
 
-    @staticmethod
-    def _host(t: torch.Tensor) -> np.ndarray:
-        return t.cpu().numpy()
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host: waits for the kernels that write
+        it, then copies."""
+        with span("engine.d2h", self.stats, "d2h_seconds"):
+            return t.cpu().numpy()
 
     def _row_chunks(self, n: int):
         """-> ``[(device, lo, hi)]``: the mesh's contiguous row chunks of an
@@ -461,15 +476,27 @@ class CodecEngine:
         """``fn`` on each row chunk of ``data``, put on the chunk's device
         (``mesh.shard_batch``); every chunk is launched before any result
         is read."""
-        return [fn(x) for x in mesh_lib.shard_batch(data, self.mesh,
-                                                    self.device)]
+        with span("engine.h2d", self.stats, "h2d_seconds", args=data.shape):
+            xs = mesh_lib.shard_batch(data, self.mesh, self.device)
+        with span("engine.launch", self.stats, "launch_seconds"):
+            out = [fn(x) for x in xs]
+        self._free(xs)
+        return out
 
-    @classmethod
-    def _cat(cls, parts) -> np.ndarray:
-        """Device tensors of consecutive row chunks -> one host array."""
-        if len(parts) == 1:
-            return cls._host(parts[0])
-        return np.concatenate([cls._host(p) for p in parts])
+    def _free(self, tensors: list) -> None:
+        """Drop a list's device tensors (span ``engine.free``,
+        ``free_seconds``): freeing one takes the GIL anew, which the host
+        packer's workers hold for milliseconds."""
+        with span("engine.free", self.stats, "free_seconds"):
+            tensors.clear()
+
+    def _cat(self, parts: list) -> np.ndarray:
+        """Device tensors of consecutive row chunks -> one host array;
+        empties ``parts``, so that the tensors only it holds are freed
+        (:meth:`_free`)."""
+        host = [self._host(p) for p in parts]
+        self._free(parts)
+        return host[0] if len(host) == 1 else np.concatenate(host)
 
     def _forward_dev(self, x: torch.Tensor, dims, pack: int = 1):
         """Device forward of a batch array: -> (coeffs, max, min) on the
@@ -483,9 +510,9 @@ class CodecEngine:
 
     def _forward(self, data: np.ndarray, dims, pack: int = 1):
         """-> (per-chunk coefficient tensors, max, min on the host)."""
-        parts = self._map(lambda x: self._forward_dev(x, dims, pack), data)
-        return ([c for c, _, _ in parts], self._cat([p[1] for p in parts]),
-                self._cat([p[2] for p in parts]))
+        cs, maxs, mins = map(list, zip(*self._map(
+            lambda x: self._forward_dev(x, dims, pack), data)))
+        return cs, self._cat(maxs), self._cat(mins)
 
     def forward_signed_batch(self, data: np.ndarray):
         """-> (coeffs f32 [N, XYZ], signed absmax f32 [N]) of an unpacked
@@ -518,11 +545,12 @@ class CodecEngine:
             return self._compress_giant(batch, keep)
         cs, maxv, minv = self._forward(batch.data, batch.shape, batch.pack)
         cb = dataclasses.replace(batch, data=self._cat(cs))
-        # a tie resolves against item i's logical coefficients, wherever
-        # the batch geometry puts them
-        signed = resolve_signed_absmax(
-            maxv, minv, row_getter=lambda i: cb.item_view(i).reshape(-1))
-        return cb, threshold.exact_threshold32(signed, keep)
+        with span("engine.threshold", self.stats, "threshold_seconds"):
+            # a tie resolves against item i's logical coefficients,
+            # wherever the batch geometry puts them
+            signed = resolve_signed_absmax(
+                maxv, minv, row_getter=lambda i: cb.item_view(i).reshape(-1))
+            return cb, threshold.exact_threshold32(signed, keep)
 
     def _compress_giant(self, batch: ShapeBatch, keep: float):
         """Giant-box compress: each item is one box split along X over the
@@ -582,9 +610,10 @@ class CodecEngine:
         flats = [(packed_cuda.unpack(c, batch.pack) if batch.pack > 1
                   else c).reshape(-1, m) for c in cs]
         flat = flats[0] if len(flats) == 1 else _ChunkRows(flats)
-        signed = resolve_signed_absmax(
-            maxv, minv, row_getter=lambda i: self._host(flat[i]))
-        t32 = threshold.exact_threshold32(signed, keep)
+        with span("engine.threshold", self.stats, "threshold_seconds"):
+            signed = resolve_signed_absmax(
+                maxv, minv, row_getter=lambda i: self._host(flat[i]))
+            t32 = threshold.exact_threshold32(signed, keep)
         # cap rounded UP to a multiple of 128 slots
         cap = int(min(m, max(128, -(-int(m * cap_fraction) // 128) * 128)))
         parts, lo = [], 0
@@ -858,9 +887,12 @@ class CodecEngine:
         eff = self.eff_scales(dims)
         outs = []
         for dev, lo, hi in self._row_chunks(idx.shape[0]):
-            rows = self.scatter_rows(torch.from_numpy(idx[lo:hi]).to(dev),
-                                     self._put(vals[lo:hi], dev), dims)
-            outs.append(self._inverse_dev(rows, eff))
+            with span("engine.h2d", self.stats, "h2d_seconds"):
+                idx_dev = torch.from_numpy(idx[lo:hi]).to(dev)
+                vals_dev = self._put(vals[lo:hi], dev)
+            with span("engine.launch", self.stats, "launch_seconds"):
+                outs.append(self._inverse_dev(
+                    self.scatter_rows(idx_dev, vals_dev, dims), eff))
         return ShapeBatch(shape=dims, data=self._cat(outs),
                           items=batch.items, n_valid=batch.n_valid)
 
@@ -884,6 +916,12 @@ class CodecEngine:
                 "lane-packed on the halves route at scales=1)")
 
 
+# what each member of a pack / an unpack returns beside its output
+_PACK_KEYS = ("pack_cpu_seconds", "xz_in_bytes", "xz_cpu_seconds")
+_UNPACK_KEYS = ("unpack_cpu_seconds", "xz_decoded_bytes",
+                "xz_decode_cpu_seconds")
+
+
 def _atomic_write(path: str, blob: bytes) -> None:
     """Temp-name + rename so a crash mid-write never leaves a truncated
     output that a resumed run (resume=1) would skip as complete."""
@@ -902,13 +940,26 @@ class HostPacker:
     Two archive layouts with identical member bytes: ``files`` (one
     ``.xz`` per (t, lev, comp, box), reference-compatible) and ``bundle``
     (one container per timestep; callers must :meth:`close_bundles`).
+
+    ``stats`` (a dict, by default the packer's own) receives, on the
+    thread that calls :meth:`pack` or :meth:`pack_sparse`, the
+    ``pack_seconds`` of the call (span ``pack.batch``) and, summed over its
+    members, ``pack_cpu_seconds`` (the workers' thread CPU, span
+    ``pack.member``), ``xz_in_bytes`` (serialized payload bytes into the
+    member codec) and ``xz_cpu_seconds`` (span ``pack.xz``); on the
+    unpack side ``unpack_cpu_seconds``, ``xz_decoded_bytes`` and
+    ``xz_decode_cpu_seconds`` (spans ``unpack.member``, ``unpack.xz``).
+    The native backend's workers are C++ threads: its calls add
+    ``pack_seconds`` only.
     """
 
     def __init__(self, workers: int | None = None,
                  use_native: bool | None = None, payload: str = "f32",
                  codec: str = "xz", xz_preset: int = 6,
-                 archive_format: str = "files", xz_delta: int = 0):
+                 archive_format: str = "files", xz_delta: int = 0,
+                 stats: dict | None = None):
         self.workers = workers or min(32, (os.cpu_count() or 4))
+        self.stats = {} if stats is None else stats
         if payload not in ("f32", "q16"):
             raise ValueError(f"unknown payload format {payload!r}")
         if codec not in ("xz", "raw"):
@@ -924,6 +975,14 @@ class HostPacker:
         if use_native is None:
             use_native = native.available()
         self.use_native = use_native and native.available()
+
+    def _add_member_stats(self, results, keys) -> list:
+        """Sum the members' ``(out, *counts)`` into ``stats[keys]``;
+        -> the members' ``out``."""
+        for k, key in enumerate(keys, 1):
+            self.stats[key] = (self.stats.get(key, 0)
+                               + sum(r[k] for r in results))
+        return [r[0] for r in results]
 
     def _paths(self, dir_, items):
         return [os.path.join(dir_, archive.payload_filename(
@@ -982,6 +1041,17 @@ class HostPacker:
             return 1, n, n
         return x * y, z, batch.pack * z
 
+    def _encode(self, payload: bytes, path):
+        """xz (or ``codec=raw``) one serialized member and, in files mode
+        (``path`` set), write it; -> (the blob, or its length once written;
+        the codec's thread CPU seconds)."""
+        with span("pack.xz", cpu=True) as xz:
+            blob = archive.encode_blob(payload, self.codec, self.xz_preset)
+        if path is None:
+            return blob, xz.cpu_seconds
+        _atomic_write(path, blob)
+        return len(blob), xz.cpu_seconds
+
     def pack(self, out_dir: str, coeff_batch: ShapeBatch,
              t32: np.ndarray, subset=None) -> int:
         """Threshold+RLE+xz+write items of a coefficient ShapeBatch
@@ -991,48 +1061,51 @@ class HostPacker:
         rows, row_len, row_stride = self._geometry(coeff_batch)
         sel = list(range(len(items))) if subset is None else list(subset)
         bundled = self.archive_format == "bundle"
-        if self.use_native:
-            if not sel:
-                return 0
-            offsets = coeff_batch.item_offsets()
-            t32_sel = np.asarray(t32)[sel]
-            if bundled:
-                blobs = native.encode_strided(
-                    coeff_batch.data, t32_sel, coeff_batch.shape, rows,
-                    row_len, row_stride, offsets[sel], self.workers,
+        with span("pack.batch", self.stats, "pack_seconds",
+                  args=(*coeff_batch.shape, len(sel))):
+            if self.use_native:
+                if not sel:
+                    return 0
+                offsets = coeff_batch.item_offsets()
+                t32_sel = np.asarray(t32)[sel]
+                if bundled:
+                    blobs = native.encode_strided(
+                        coeff_batch.data, t32_sel, coeff_batch.shape, rows,
+                        row_len, row_stride, offsets[sel], self.workers,
+                        payload=self.payload, codec=self.codec,
+                        preset=self.xz_preset)
+                    return self._append_members(
+                        out_dir, [items[i] for i in sel], blobs)
+                return native.pack_strided(
+                    coeff_batch.data, t32_sel, coeff_batch.shape,
+                    self._paths(out_dir, [items[i] for i in sel]),
+                    rows, row_len, row_stride, offsets[sel], self.workers,
                     payload=self.payload, codec=self.codec,
                     preset=self.xz_preset)
-                return self._append_members(
-                    out_dir, [items[i] for i in sel], blobs)
-            return native.pack_strided(
-                coeff_batch.data, t32_sel, coeff_batch.shape,
-                self._paths(out_dir, [items[i] for i in sel]),
-                rows, row_len, row_stride, offsets[sel], self.workers,
-                payload=self.payload, codec=self.codec,
-                preset=self.xz_preset)
 
-        serialize = (archive.serialize_payload_q16 if self.payload == "q16"
-                     else archive.serialize_payload)
-        paths = None if bundled else self._paths(out_dir, items)
+            serialize = (archive.serialize_payload_q16
+                         if self.payload == "q16"
+                         else archive.serialize_payload)
+            paths = None if bundled else self._paths(out_dir, items)
 
-        def one(i):
-            flat = np.ascontiguousarray(coeff_batch.item_view(i)).reshape(-1)
-            mask = np.abs(flat) > t32[i]
-            runs, vals = rle.rle_encode_mask(mask, flat)
-            blob = archive.encode_blob(
-                serialize(coeff_batch.shape, runs, vals),
-                self.codec, self.xz_preset)
+            def one(i):
+                with span("pack.member", cpu=True) as member:
+                    flat = np.ascontiguousarray(
+                        coeff_batch.item_view(i)).reshape(-1)
+                    mask = np.abs(flat) > t32[i]
+                    runs, vals = rle.rle_encode_mask(mask, flat)
+                    payload = serialize(coeff_batch.shape, runs, vals)
+                    out, xz_cpu = self._encode(
+                        payload, None if bundled else paths[i])
+                return out, member.cpu_seconds, len(payload), xz_cpu
+
+            with cf.ThreadPoolExecutor(self.workers) as ex:
+                results = self._add_member_stats(list(ex.map(one, sel)),
+                                                 _PACK_KEYS)
             if bundled:
-                return blob
-            _atomic_write(paths[i], blob)
-            return len(blob)
-
-        with cf.ThreadPoolExecutor(self.workers) as ex:
-            results = list(ex.map(one, sel))
-        if bundled:
-            return self._append_members(
-                out_dir, [items[i] for i in sel], results)
-        return sum(results)
+                return self._append_members(
+                    out_dir, [items[i] for i in sel], results)
+            return sum(results)
 
     def pack_sparse(self, out_dir: str, sparse: SparseCoeffs,
                     t32: np.ndarray) -> int:
@@ -1045,20 +1118,22 @@ class HostPacker:
                      else archive.serialize_payload)
 
         def one(i):
-            idx, vals = sparse.item_pairs(i, float(t32[i]))
-            runs = rle.rle_encode_pairs(idx)
-            blob = archive.encode_blob(serialize(sparse.shape, runs, vals),
-                                       self.codec, self.xz_preset)
-            if bundled:
-                return blob
-            _atomic_write(paths[i], blob)
-            return len(blob)
+            with span("pack.member", cpu=True) as member:
+                idx, vals = sparse.item_pairs(i, float(t32[i]))
+                runs = rle.rle_encode_pairs(idx)
+                payload = serialize(sparse.shape, runs, vals)
+                out, xz_cpu = self._encode(payload,
+                                           None if bundled else paths[i])
+            return out, member.cpu_seconds, len(payload), xz_cpu
 
-        with cf.ThreadPoolExecutor(self.workers) as ex:
-            results = list(ex.map(one, range(len(sparse.items))))
-        if bundled:
-            return self._append_members(out_dir, sparse.items, results)
-        return sum(results)
+        with span("pack.batch", self.stats, "pack_seconds",
+                  args=(*sparse.shape, len(sparse.items))):
+            with cf.ThreadPoolExecutor(self.workers) as ex:
+                results = self._add_member_stats(
+                    list(ex.map(one, range(len(sparse.items)))), _PACK_KEYS)
+            if bundled:
+                return self._append_members(out_dir, sparse.items, results)
+            return sum(results)
 
     def unpack_sparse(self, in_dir: str, batch: ShapeBatch):
         """Decode payloads to padded (logical position, value) pair arrays
@@ -1082,33 +1157,38 @@ class HostPacker:
                        else archive.deserialize_payload)
 
         def one(i):
-            if bundled:
-                it = items[i]
-                blob = bs.blob(it.t, it.level, it.comp_idx, it.box)
-            else:
-                with open(paths[i], "rb") as f:
-                    blob = f.read()
-            payload = archive.decode_blob(blob, self.codec)
-            shape, total, runs, vals = deserialize(payload)
-            if tuple(shape) != dims:
-                raise ValueError(
-                    f"payload shape {tuple(shape)} disagrees with "
-                    f"dimensions.raw {dims}")
-            if int(total) != m:
-                # the dense path hits this as a reshape failure; reject the
-                # corrupt header with the same clean-error contract instead
-                # of silently dropping the out-of-range coefficients
-                raise ValueError(
-                    f"payload total {int(total)} disagrees with "
-                    f"dimensions.raw volume {m}")
-            # shared helper = the single home of the malformed-stream
-            # semantics (reference's skip-increment rule), so sparse and
-            # dense decompress can never drift apart on corrupt payloads
-            pos, v = rle.rle_decode_pairs(runs, vals, total)
-            return pos.astype(np.int32), v
+            with span("unpack.member", cpu=True) as member:
+                if bundled:
+                    it = items[i]
+                    blob = bs.blob(it.t, it.level, it.comp_idx, it.box)
+                else:
+                    with open(paths[i], "rb") as f:
+                        blob = f.read()
+                with span("unpack.xz", cpu=True) as xz:
+                    payload = archive.decode_blob(blob, self.codec)
+                shape, total, runs, vals = deserialize(payload)
+                if tuple(shape) != dims:
+                    raise ValueError(
+                        f"payload shape {tuple(shape)} disagrees with "
+                        f"dimensions.raw {dims}")
+                if int(total) != m:
+                    # the dense path hits this as a reshape failure; reject
+                    # the corrupt header with the same clean-error contract
+                    # instead of silently dropping the out-of-range
+                    # coefficients
+                    raise ValueError(
+                        f"payload total {int(total)} disagrees with "
+                        f"dimensions.raw volume {m}")
+                # shared helper = the single home of the malformed-stream
+                # semantics (reference's skip-increment rule), so sparse and
+                # dense decompress can never drift apart on corrupt payloads
+                pos, v = rle.rle_decode_pairs(runs, vals, total)
+                pos = pos.astype(np.int32)
+            return (pos, v), member.cpu_seconds, len(payload), xz.cpu_seconds
 
         with cf.ThreadPoolExecutor(self.workers) as ex:
-            pairs = list(ex.map(one, range(len(items))))
+            pairs = self._add_member_stats(
+                list(ex.map(one, range(len(items)))), _UNPACK_KEYS)
         cap = max([len(p) for p, _ in pairs] + [1])
         # round the pad capacity up to a power of two, but never past the
         # box volume (a 256 floor on an m=64 box would ship MORE bytes
@@ -1156,18 +1236,23 @@ class HostPacker:
                        else archive.deserialize_payload)
 
         def one(i):
-            if bundled:
-                payload = archive.decode_blob(blobs[i], self.codec)
-            else:
-                with open(paths[i], "rb") as f:
-                    payload = archive.decode_blob(f.read(), self.codec)
-            shape, total, runs, vals = deserialize(payload)
-            if tuple(shape) != tuple(dims):
-                raise ValueError(
-                    f"payload shape {shape} disagrees with dimensions.raw "
-                    f"{dims}")
-            batch.item_write(i, rle.rle_decode(
-                runs, vals, total).reshape(dims))
+            with span("unpack.member", cpu=True) as member:
+                if bundled:
+                    blob = blobs[i]
+                else:
+                    with open(paths[i], "rb") as f:
+                        blob = f.read()
+                with span("unpack.xz", cpu=True) as xz:
+                    payload = archive.decode_blob(blob, self.codec)
+                shape, total, runs, vals = deserialize(payload)
+                if tuple(shape) != tuple(dims):
+                    raise ValueError(
+                        f"payload shape {shape} disagrees with "
+                        f"dimensions.raw {dims}")
+                batch.item_write(i, rle.rle_decode(
+                    runs, vals, total).reshape(dims))
+            return None, member.cpu_seconds, len(payload), xz.cpu_seconds
 
         with cf.ThreadPoolExecutor(self.workers) as ex:
-            list(ex.map(one, range(len(batch.items))))
+            self._add_member_stats(
+                list(ex.map(one, range(len(batch.items)))), _UNPACK_KEYS)
