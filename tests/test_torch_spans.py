@@ -346,3 +346,46 @@ def test_cli_profile_records_worker_spans(tmp_path, monkeypatch):
     tids = {e["tid"] for e in events if e.get("name") == "pack.member"}
     main = {e["tid"] for e in events if e.get("name") == "compress.run"}
     assert tids and not tids & main
+
+
+GLOBAL_SPANS = ("compress.global_pass1", "compress.global_pass2")
+
+
+@pytest.mark.parametrize("cache", ["cached", "reread"])
+def test_global_mode_spans_and_counters(tmp_path, monkeypatch, cache):
+    """``thresholdmode=global``: each pass is a span inside the whole call,
+    holding its reads, device steps and pack waits; the counters say how
+    many timesteps pass 2 took from the cache and how many it re-read.
+    One process sums no histogram, so ``compress.allreduce`` is absent
+    (the four-rank run of ``tests/test_wtbench_global4.py`` has it)."""
+    monkeypatch.setattr(native, "available", lambda: False)
+    data = _write_data(str(tmp_path))
+    extra = {} if cache == "cached" else {"global_cache_bytes": 0}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        st = wavelet_tpu_torch.compress(
+            data, str(tmp_path / "a"), min_time="plt00010",
+            max_time="plt00020", components=COMPS, min_level=0, max_level=1,
+            threshold_mode="global", keep_fraction=0.05, device="cpu",
+            **extra)
+    cached = 2 if cache == "cached" else 0
+    assert st["global_cached_timesteps"] == cached
+    assert st["global_reread_timesteps"] == 2 - cached
+    assert "allreduce_seconds" not in st
+    p1, p2 = st["global_pass1_seconds"], st["global_pass2_seconds"]
+    assert p1 > 0 and p2 > 0
+    assert p1 + p2 <= st["compress_seconds"]
+    # pass 2 holds every pack wait; the re-reads, when there are any
+    assert st["pack_wait_seconds"] <= p2
+    assert st["read_seconds"] <= p1 + p2
+    ev = _events(prof, set(GLOBAL_SPANS) | {"compress.run",
+                                            "compress.read"})
+    by = {n: [(s, e) for m, s, e in ev if m == n] for n, _, _ in ev}
+    assert len(by["compress.global_pass1"]) == 1
+    assert len(by["compress.global_pass2"]) == 1
+    (r0, r1), = by["compress.run"]
+    for name in GLOBAL_SPANS:
+        (s, e), = by[name]
+        assert r0 <= s and e <= r1, name
+    (s2, _), = by["compress.global_pass2"]
+    rereads = [r for r in by["compress.read"] if r[0] >= s2]
+    assert len(rereads) == 2 - cached

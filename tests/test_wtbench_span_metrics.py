@@ -18,7 +18,8 @@ PASSES = [
      "unpack_cpu_seconds": 5.0, "xz_decoded_bytes": 40e6,
      "xz_decode_cpu_seconds": 2.0, "assemble_seconds": 0.05,
      "free_seconds": 0.25, "device_seconds": 0.7,
-     "unpack_overlap_seconds": 0.5},
+     "unpack_overlap_seconds": 0.5, "global_pass1_seconds": 1.5,
+     "global_pass2_seconds": 3.0, "allreduce_seconds": 0.2},
     {"pack_seconds": 2.0, "pack_cpu_seconds": 4.0, "xz_in_bytes": 10e6,
      "xz_cpu_seconds": 10.0, "h2d_seconds": 0.1, "launch_seconds": 0.2,
      "d2h_seconds": 0.3, "threshold_seconds": 0.4,
@@ -26,7 +27,8 @@ PASSES = [
      "unpack_cpu_seconds": 3.0, "xz_decoded_bytes": 40e6,
      "xz_decode_cpu_seconds": 2.0, "assemble_seconds": 0.05,
      "free_seconds": 0.25, "device_seconds": 0.7,
-     "unpack_overlap_seconds": 0.25},
+     "unpack_overlap_seconds": 0.25, "global_pass1_seconds": 0.5,
+     "global_pass2_seconds": 1.0, "allreduce_seconds": 0.3},
 ]
 EXPECTED = {
     "pack_cores.compress": 16.0 / 4.0,
@@ -45,6 +47,9 @@ EXPECTED = {
     "d2h_s_per_gb.regen": 0.6,
     "assemble_s_per_gb.regen": 0.1,
     "unpack_overlap_share.regen": 100.0 * 0.75 / 1.5,
+    "hist_pass_s_per_gb.global4": 2.0,
+    "pack_pass_s_per_gb.global4": 4.0,
+    "allreduce_wait_s_per_gb.global4": 0.5,
 }
 
 

@@ -210,16 +210,20 @@ def _new_stats() -> dict:
     return stats
 
 
-def _allreduce_histogram(hist: np.ndarray) -> np.ndarray:
+def _allreduce_histogram(hist: np.ndarray,
+                         stats: dict | None = None) -> np.ndarray:
     """Sum int64 histograms across the processes (gloo ``all_reduce``).
     The sum is exact in int64, so the JAX package's two 31-bit limbs are
     not needed; every process gets the same sum, and so the same global
-    threshold."""
+    threshold.  The call returns when the slowest process has sent its
+    histogram: span ``compress.allreduce`` (``allreduce_seconds``) is this
+    process's wait for the others."""
     import torch
     import torch.distributed as dist
 
     t = torch.from_numpy(np.ascontiguousarray(hist, np.int64))
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    with span("compress.allreduce", stats, "allreduce_seconds"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t.numpy()
 
 
@@ -295,7 +299,11 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
     per timestep, in order); past it, pass 1 fetches only the histogram
     and pass 2 re-reads and re-transforms the timestep.  ``crosshost``:
     giant items are collective (``giantmesh=global`` over several
-    processes)."""
+    processes).  Adds to ``stats`` each pass's seconds (spans
+    ``compress.global_pass1``, ``compress.global_pass2``), the wait at the
+    histogram's sum (``compress.allreduce``), and the timesteps pass 2
+    took from the cache (``global_cached_timesteps``) and re-read
+    (``global_reread_timesteps``)."""
     n_times = len(meta.files)
     budget = (int(cfg.global_cache_bytes)
               if cfg.global_cache_bytes is not None
@@ -303,43 +311,46 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
     cache: dict = {}        # t -> (coefficient ShapeBatches, owned set)
     cache_used = 0
     hist = np.zeros(threshold.EXP_HIST_BINS, np.int64)
-    for t, (batches, owned) in _iter_prefetched(
-            n_times, lambda t: timestep_batches(t, False), cfg.prefetch):
-        t_bytes = (_t_bytes_global(meta, eng, t) if crosshost
-                   else sum(b.data.nbytes for b in batches))
-        keep_t = cache_used + t_bytes <= budget
-        cbs = []
-        for batch in batches:
-            # a giant batch holds every process's giant items: each counts
-            # in the histogram on its owner only
-            with span("compress.device_step", stats, "device_seconds",
-                      cpu=True, args=(*batch.shape, len(batch.items))):
-                cb, h = eng.forward_hist_shapebatch(
-                    batch, hist_items=_owned_subset(batch.items, owned),
-                    fetch_coeffs=keep_t)
-            hist += h
+    with span("compress.global_pass1", stats, "global_pass1_seconds"):
+        for t, (batches, owned) in _iter_prefetched(
+                n_times, lambda t: timestep_batches(t, False), cfg.prefetch):
+            t_bytes = (_t_bytes_global(meta, eng, t) if crosshost
+                       else sum(b.data.nbytes for b in batches))
+            keep_t = cache_used + t_bytes <= budget
+            cbs = []
+            for batch in batches:
+                # a giant batch holds every process's giant items: each
+                # counts in the histogram on its owner only
+                with span("compress.device_step", stats, "device_seconds",
+                          cpu=True, args=(*batch.shape, len(batch.items))):
+                    cb, h = eng.forward_hist_shapebatch(
+                        batch, hist_items=_owned_subset(batch.items, owned),
+                        fetch_coeffs=keep_t)
+                hist += h
+                if keep_t:
+                    cbs.append(cb)
+                    stats["device_to_host_bytes"] += cb.data.nbytes
             if keep_t:
-                cbs.append(cb)
-                stats["device_to_host_bytes"] += cb.data.nbytes
-        if keep_t:
-            if batches:
-                cache[t] = (cbs, owned)
-            # crosshost: every process advances the budget alike, also
-            # over a timestep with none of its items, or a later giant
-            # timestep's admission would differ between processes
-            if batches or crosshost:
-                cache_used += t_bytes
+                if batches:
+                    cache[t] = (cbs, owned)
+                # crosshost: every process advances the budget alike, also
+                # over a timestep with none of its items, or a later giant
+                # timestep's admission would differ between processes
+                if batches or crosshost:
+                    cache_used += t_bytes
     if cache or budget:
         log.info("globalcache: retained %d/%d timesteps' coefficients "
                  "(%.2f of %.2f GiB budget); pass 2 re-reads the rest",
                  len(cache), n_times, cache_used / 2**30, budget / 2**30)
     stats["global_cached_timesteps"] = len(cache)
     if mesh_lib.process_count() > 1:
-        hist = _allreduce_histogram(hist)
+        hist = _allreduce_histogram(hist, stats)
     tval = threshold.threshold_from_histogram(hist, cfg.keep_fraction)
     log.info("Global magnitude threshold (keep_fraction=%s): %s",
              cfg.keep_fraction, tval)
     stats["global_threshold"] = float(tval)
+
+    stats["global_reread_timesteps"] = 0
 
     def pass2_batches(t):
         """Cached coefficient batches, or a re-read (popping frees each
@@ -347,32 +358,36 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
         cached = cache.pop(t, None)
         if cached is not None:
             return cached, True
-        return timestep_batches(t, False), False
+        batches, owned = timestep_batches(t, False)
+        if batches:
+            stats["global_reread_timesteps"] += 1
+        return (batches, owned), False
 
     bundle_bytes = 0
-    for t, ((batches, owned), is_coeff) in _iter_prefetched(
-            n_times, pass2_batches, cfg.prefetch):
-        def step(batch, is_coeff=is_coeff, owned=owned):
-            cb = batch
-            if not is_coeff:
-                cb = eng.forward_hist_shapebatch(batch)[0]
-                stats["device_to_host_bytes"] += cb.data.nbytes
-            subset = None
-            if cfg.resume or owned is not None:
-                mine = [i for i, it in enumerate(cb.items)
-                        if owned is None or it in owned]
-                subset = [i for i in mine if not (cfg.resume and _exists(
-                    cfg.compressed_dir, cb.items[i], have))]
-                stats["skipped"] += len(mine) - len(subset)
-                if len(subset) == len(cb.items):
-                    subset = None
-            t32 = np.full(len(cb.items), tval, np.float32)
-            n_packed = len(cb.items) if subset is None else len(subset)
-            return (functools.partial(packer.pack, coeff_batch=cb, t32=t32,
-                                      subset=subset), n_packed)
+    with span("compress.global_pass2", stats, "global_pass2_seconds"):
+        for t, ((batches, owned), is_coeff) in _iter_prefetched(
+                n_times, pass2_batches, cfg.prefetch):
+            def step(batch, is_coeff=is_coeff, owned=owned):
+                cb = batch
+                if not is_coeff:
+                    cb = eng.forward_hist_shapebatch(batch)[0]
+                    stats["device_to_host_bytes"] += cb.data.nbytes
+                subset = None
+                if cfg.resume or owned is not None:
+                    mine = [i for i, it in enumerate(cb.items)
+                            if owned is None or it in owned]
+                    subset = [i for i in mine if not (cfg.resume and _exists(
+                        cfg.compressed_dir, cb.items[i], have))]
+                    stats["skipped"] += len(mine) - len(subset)
+                    if len(subset) == len(cb.items):
+                        subset = None
+                t32 = np.full(len(cb.items), tval, np.float32)
+                n_packed = len(cb.items) if subset is None else len(subset)
+                return (functools.partial(packer.pack, coeff_batch=cb,
+                                          t32=t32, subset=subset), n_packed)
 
-        _pack_overlapped(batches, step, cfg.compressed_dir, stats)
-        bundle_bytes += _close(packer, stats, t)
+            _pack_overlapped(batches, step, cfg.compressed_dir, stats)
+            bundle_bytes += _close(packer, stats, t)
     return bundle_bytes
 
 

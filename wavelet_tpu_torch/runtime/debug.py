@@ -12,6 +12,9 @@ a system call.  The stages are the ones the pipelines' stats report:
 
 - calling thread: ``compress.setup``, ``compress.run``, ``compress.read``,
   ``compress.device_step``, ``compress.pack_wait``, ``compress.close``;
+  in global threshold mode ``compress.global_pass1``,
+  ``compress.allreduce`` (the wait at the histogram's sum over the
+  processes) and ``compress.global_pass2``;
   ``decompress.run``, ``decompress.unpack``, ``decompress.unpack_wait``,
   ``decompress.device_step``, ``decompress.assemble``,
   ``decompress.write``; inside a device step
