@@ -15,7 +15,9 @@ the buffer encoder's block forms:
   compressed-size varint changes (``lzma2_bound(n)`` crossing 2^14 and
   2^21), which sets the header's size under the delta chain.
 
-Every case also decodes back to its payload.  Where the native codec is
+Both of the writer's paths are held to it: liblzma's buffer encoder
+called through ctypes (without the delta filter, where liblzma loads) and
+stdlib ``lzma`` reframed.  Every case also decodes back to its payload.  Where the native codec is
 loaded, a box's member written by the sparse path (Python writer) equals
 the dense path's (native writer).  Skipped where liblzma is not found.
 """
@@ -136,6 +138,19 @@ def test_xz_compress_is_liblzma_s_bytes(name, word):
     want = liblzma_encode(payload, WORDS[word])
     assert len(blob) == len(want)
     assert blob == want
+    assert archive.xz_decompress(blob) == payload
+
+
+@pytest.mark.parametrize("word", list(WORDS), ids=list(WORDS))
+@pytest.mark.parametrize("name", list(PAYLOADS), ids=list(PAYLOADS))
+def test_stdlib_writer_is_liblzma_s_bytes(name, word, monkeypatch):
+    """The stdlib ``lzma`` writer, which ``xz_compress`` takes under the
+    delta filter and where liblzma does not load, returns the same
+    bytes."""
+    monkeypatch.setattr(archive, "_easy_buffer_encode", lambda *a: None)
+    payload = PAYLOADS[name]()
+    blob = archive.xz_compress(payload, WORDS[word])
+    assert blob == liblzma_encode(payload, WORDS[word])
     assert archive.xz_decompress(blob) == payload
 
 

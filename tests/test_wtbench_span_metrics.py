@@ -19,7 +19,8 @@ PASSES = [
      "xz_decode_cpu_seconds": 2.0, "assemble_seconds": 0.05,
      "free_seconds": 0.25, "device_seconds": 0.7,
      "unpack_overlap_seconds": 0.5, "global_pass1_seconds": 1.5,
-     "global_pass2_seconds": 3.0, "allreduce_seconds": 0.2},
+     "global_pass2_seconds": 3.0, "allreduce_seconds": 0.2,
+     "read_seconds": 0.3, "pack_overlap_seconds": 0.4},
     {"pack_seconds": 2.0, "pack_cpu_seconds": 4.0, "xz_in_bytes": 10e6,
      "xz_cpu_seconds": 10.0, "h2d_seconds": 0.1, "launch_seconds": 0.2,
      "d2h_seconds": 0.3, "threshold_seconds": 0.4,
@@ -28,7 +29,8 @@ PASSES = [
      "xz_decode_cpu_seconds": 2.0, "assemble_seconds": 0.05,
      "free_seconds": 0.25, "device_seconds": 0.7,
      "unpack_overlap_seconds": 0.25, "global_pass1_seconds": 0.5,
-     "global_pass2_seconds": 1.0, "allreduce_seconds": 0.3},
+     "global_pass2_seconds": 1.0, "allreduce_seconds": 0.3,
+     "read_seconds": 0.3, "pack_overlap_seconds": 0.1},
 ]
 EXPECTED = {
     "pack_cores.compress": 16.0 / 4.0,
@@ -47,6 +49,9 @@ EXPECTED = {
     "d2h_s_per_gb.regen": 0.6,
     "assemble_s_per_gb.regen": 0.1,
     "unpack_overlap_share.regen": 100.0 * 0.75 / 1.5,
+    # (0.4 + 0.1) of reads (0.6) and device steps (1.4)
+    "pack_overlap_share.compress": 100.0 * 0.5 / 2.0,
+    "pack_overlap_share.bundle": 100.0 * 0.5 / 2.0,
     "hist_pass_s_per_gb.global4": 2.0,
     "pack_pass_s_per_gb.global4": 4.0,
     "allreduce_wait_s_per_gb.global4": 0.5,

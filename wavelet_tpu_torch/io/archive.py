@@ -5,7 +5,9 @@ imports nothing of ``wavelet_tpu``.  It differs in one function:
 :func:`xz_compress` writes liblzma's buffer-encoder bytes for every
 payload, where ``wavelet_tpu``'s Python writer departs from them (and so
 from its own native writer and the C++ tool) on incompressible payloads
-above 64 KiB and on 16,288-16,379-byte payloads under the delta filter.
+above 64 KiB and on 16,288-16,379-byte payloads under the delta filter;
+and without the delta filter it calls that encoder itself, through
+ctypes, where the system liblzma loads.
 
 Byte-compatible with the reference so either tool can read the other's
 archives (the compatibility contract of SURVEY.md §4.2):
@@ -35,6 +37,9 @@ don't reproduce the dead flag.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import lzma
 import os
 import struct
@@ -123,6 +128,47 @@ def pack_preset(preset: int, delta: int = 0) -> int:
     return preset | (delta << 8)
 
 
+_LZMA_CHECK_CRC64 = 4
+
+
+@functools.cache
+def _buffer_encoder():
+    """liblzma's ``lzma_easy_buffer_encode`` and ``lzma_stream_buffer_bound``
+    through ctypes, or None where no liblzma loads.  A ctypes call runs
+    without the GIL from start to end, where stdlib ``lzma`` holds it
+    while it builds each encoder (~1 ms at preset 6): a packer's threads
+    then encode small members one at a time."""
+    try:
+        lib = ctypes.CDLL(ctypes.util.find_library("lzma") or "liblzma.so.5")
+        encode = lib.lzma_easy_buffer_encode
+        bound = lib.lzma_stream_buffer_bound
+    except (OSError, AttributeError):
+        return None
+    encode.argtypes = [ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_size_t), ctypes.c_size_t]
+    encode.restype = ctypes.c_int
+    bound.argtypes = [ctypes.c_size_t]
+    bound.restype = ctypes.c_size_t
+    return encode, bound
+
+
+def _easy_buffer_encode(payload: bytes, preset: int):
+    """``lzma_easy_buffer_encode(preset, LZMA_CHECK_CRC64)`` of ``payload``,
+    or None where liblzma is not loaded or fails."""
+    fns = _buffer_encoder()
+    if fns is None:
+        return None
+    encode, bound = fns
+    cap = bound(len(payload))
+    out = ctypes.create_string_buffer(cap)
+    pos = ctypes.c_size_t(0)
+    if encode(preset, _LZMA_CHECK_CRC64, None, payload, len(payload), out,
+              ctypes.byref(pos), cap) != 0:
+        return None
+    return out.raw[:pos.value]
+
+
 def xz_compress(payload: bytes, preset: int = 6) -> bytes:
     """xz container, LZMA2 CRC64: the bytes of liblzma's buffer encoder
     (``lzma_easy_buffer_encode(p, CRC64)``, or ``lzma_stream_buffer_encode``
@@ -142,6 +188,15 @@ def xz_compress(payload: bytes, preset: int = 6) -> bytes:
     chain is declared in the stream."""
     delta = (int(preset) >> 8) & 0xFF
     p = int(preset) & 0xFF
+    blob = None if delta else _easy_buffer_encode(payload, p)
+    if blob is not None:
+        return blob
+    return _stdlib_xz_compress(payload, p, delta)
+
+
+def _stdlib_xz_compress(payload: bytes, p: int, delta: int) -> bytes:
+    """:func:`xz_compress` through stdlib ``lzma``, reframed into the
+    buffer encoder's bytes."""
     if delta:
         filters = [{"id": lzma.FILTER_DELTA, "dist": delta},
                    {"id": lzma.FILTER_LZMA2, "preset": p}]

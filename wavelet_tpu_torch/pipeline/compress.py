@@ -8,11 +8,15 @@ Counterpart of ``wavelet_tpu.pipeline.compress``:
   2. streaming loop, one timestep at a time: read FAB boxes
      (io/plotfile), shape-bucketed batches through the device codec
      (Haar transform or ``scales``-deep pyramid + max/min -> exact per-box
-     thresholds, runtime/engine), host RLE + serialize + xz in the packer,
-     then free.  The device works on batch i+1 while one pack thread runs
-     batch i.  ``transfer=sparse`` (or ``auto`` on a slow link) compacts
-     each batch's kept coefficients on the device and fetches only the
-     (index, value) pairs; the archive bytes are the same.
+     thresholds, runtime/engine), host RLE + serialize + xz in the packer's
+     stream, then free.  The stream packs the members of every batch
+     handed to it, largest payload first, while this thread steps the
+     next batch and reads the next timestep; nothing waits for a batch's
+     last member but the bound on the coefficients in flight, the bundle
+     closes and the end of the call.  ``transfer=sparse`` (or ``auto`` on
+     a slow link) compacts each batch's kept coefficients on the device
+     and fetches only the (index, value) pairs; the archive bytes are the
+     same.
 
 ``thresholdmode=global`` streams twice: pass 1 sums the coefficient
 magnitude histogram of every item (keeping whole timesteps' coefficients
@@ -49,6 +53,7 @@ compresses into its scratch directory with it.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import functools
 import logging
 import os
@@ -142,32 +147,65 @@ def _have_index(out_dir: str, archive_format: str):
     return set(bundle_mod.BundleSet(out_dir).keys())
 
 
-def _pack_overlapped(batches, device_step, out_dir: str,
-                     stats: dict) -> None:
-    """The overlapped device-codec + host-pack loop: the device step of
-    batch i+1 runs while a pack thread runs the host RLE+xz+write of batch
-    i.  ``device_step(batch) -> (pack, n_packed)``: ``pack(out_dir)``
-    packs the ``n_packed`` items the step chose and returns the bytes it
-    wrote.  One pack worker keeps bundle member order deterministic.  Adds
-    to ``stats``: files, bytes, and the seconds spent in the device step
-    (H2D, kernels, D2H, thresholds; span ``compress.device_step``, with its
-    thread CPU as ``device_cpu_seconds``) and waiting on the pack thread
-    (``compress.pack_wait``)."""
-    with cf.ThreadPoolExecutor(1) as pack_pool:
-        pending = None
-        for batch in batches:
-            with span("compress.device_step", stats, "device_seconds",
-                      cpu=True, args=(*batch.shape, len(batch.items))):
-                pack, n_packed = device_step(batch)
-            with span("compress.pack_wait", stats, "pack_wait_seconds"):
-                if pending is not None:
-                    stats["output_bytes"] += pending.result()
-            pending = pack_pool.submit(pack, out_dir)
-            stats["files"] += n_packed
-            stats["input_bytes"] += n_packed * int(np.prod(batch.shape)) * 4
-        if pending is not None:
-            with span("compress.pack_wait", stats, "pack_wait_seconds"):
-                stats["output_bytes"] += pending.result()
+def _pack_overlapped(batches, device_step, out_dir: str, stats: dict,
+                     packer, pending: list) -> None:
+    """Feed ``packer``'s pack stream: each batch's device step, then its
+    members handed to the stream, which packs them on the packer's pool
+    while this thread goes on to the next batch (and, after the last, to
+    the caller's next read) without waiting for them.  ``batches`` is
+    consumed: a batch's boxes are freed once it has been stepped.
+    ``device_step(batch) -> (submit, n_packed)``: ``submit(out_dir)``
+    queues the ``n_packed`` items the step chose and returns the Future
+    of their bytes, which goes on ``pending`` (see :func:`_finish`).
+
+    Before each step this thread waits while the batches in flight and
+    this one would hold more than two of the largest batch's coefficient
+    bytes (``PackStream.wait_for_room``): at most two batches'
+    coefficients alive, as when one pack thread ran batch i beside the
+    step of batch i+1.  Adds to ``stats``: files, input bytes, the
+    seconds of the device step (H2D, kernels, D2H, thresholds; span
+    ``compress.device_step``, with its thread CPU as
+    ``device_cpu_seconds``), of that wait (``compress.pack_wait``), and
+    of the steps that ran while members of an earlier batch were packing
+    (``pack_overlap_seconds``)."""
+    while batches:
+        batch = batches.pop(0)
+        with span("compress.pack_wait", stats, "pack_wait_seconds"):
+            packer.stream.wait_for_room(batch.data.nbytes)
+        with packer.stream.overlap(stats), span(
+                "compress.device_step", stats, "device_seconds", cpu=True,
+                args=(*batch.shape, len(batch.items))):
+            submit, n_packed = device_step(batch)
+        pending.append(submit(out_dir))
+        stats["files"] += n_packed
+        stats["input_bytes"] += n_packed * int(np.prod(batch.shape)) * 4
+
+
+def _finish(packer, pending: list, closes: list, stats: dict) -> None:
+    """The end of a call: close every bundle still open once the members
+    before are in, then wait for every batch on ``pending`` (span
+    ``compress.pack_wait``) and every close on ``closes``
+    (``compress.close``).  ``output_bytes``: the members' bytes, or in
+    bundle mode the containers'."""
+    closes.append(packer.close_bundles_later())
+    with span("compress.pack_wait", stats, "pack_wait_seconds"):
+        stats["output_bytes"] += sum(f.result() for f in pending)
+    with span("compress.close", stats, "close_seconds"):
+        bundle_bytes = sum(f.result() for f in closes)
+    if packer.archive_format == "bundle":
+        stats["output_bytes"] = bundle_bytes
+
+
+@contextlib.contextmanager
+def _quiesce_on_error(packer):
+    """On an exception, wait for the members already handed to the
+    stream (none is closed after a failed one) before it propagates, so
+    that no pack outlives the call."""
+    try:
+        yield
+    except BaseException:
+        packer.stream.quiesce()
+        raise
 
 
 def _owned_subset(items, owned):
@@ -191,13 +229,13 @@ def _box_step(eng, packer, keep: float, transfer: str, stats: dict,
         if eng.transfer_mode(batch.shape, transfer) == "sparse":
             sparse, t32 = eng.compress_shapebatch_sparse(batch, keep)
             stats["device_to_host_bytes"] += sparse.transfer_bytes()
-            return (functools.partial(packer.pack_sparse, sparse=sparse,
+            return (functools.partial(packer.submit_sparse, sparse=sparse,
                                       t32=t32), len(batch.items))
         coeffs, t32 = eng.compress_shapebatch(batch, keep)
         stats["device_to_host_bytes"] += coeffs.data.nbytes
         subset = _owned_subset(batch.items, owned)
-        return (functools.partial(packer.pack, coeff_batch=coeffs, t32=t32,
-                                  subset=subset),
+        return (functools.partial(packer.submit, coeff_batch=coeffs,
+                                  t32=t32, subset=subset),
                 len(batch.items) if subset is None else len(subset))
     return step
 
@@ -206,7 +244,8 @@ def _new_stats() -> dict:
     stats = dict.fromkeys(("files", "input_bytes", "output_bytes",
                            "skipped", "device_to_host_bytes"), 0)
     stats.update(dict.fromkeys(("read_seconds", "device_seconds",
-                                "pack_wait_seconds"), 0.0))
+                                "pack_wait_seconds", "pack_overlap_seconds"),
+                               0.0))
     return stats
 
 
@@ -290,8 +329,9 @@ def _t_bytes_global(meta: common.RunMeta, eng, t: int) -> int:
 
 def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
                      have, timestep_batches, stats: dict,
-                     crosshost: bool = False) -> int:
-    """The two global-threshold passes; returns the bundle bytes closed.
+                     crosshost: bool = False) -> None:
+    """The two global-threshold passes; pass 2 feeds the pack stream and
+    ends when its last member is packed and its bundles closed.
 
     Pass 1 covers every item, also on resume: the histogram, and so the
     threshold, must be the one a fresh run derives.  Whole timesteps'
@@ -363,7 +403,7 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
             stats["global_reread_timesteps"] += 1
         return (batches, owned), False
 
-    bundle_bytes = 0
+    pending, closes = [], []
     with span("compress.global_pass2", stats, "global_pass2_seconds"):
         for t, ((batches, owned), is_coeff) in _iter_prefetched(
                 n_times, pass2_batches, cfg.prefetch):
@@ -383,27 +423,30 @@ def _compress_global(cfg: common.Config, meta: common.RunMeta, eng, packer,
                         subset = None
                 t32 = np.full(len(cb.items), tval, np.float32)
                 n_packed = len(cb.items) if subset is None else len(subset)
-                return (functools.partial(packer.pack, coeff_batch=cb,
+                return (functools.partial(packer.submit, coeff_batch=cb,
                                           t32=t32, subset=subset), n_packed)
 
-            _pack_overlapped(batches, step, cfg.compressed_dir, stats)
-            bundle_bytes += _close(packer, stats, t)
-    return bundle_bytes
-
-
-def _close(packer, stats: dict, t: int | None = None) -> int:
-    """Close timestep ``t``'s bundles (all: None), fsync included; ->
-    their bytes."""
-    with span("compress.close", stats, "close_seconds"):
-        return packer.close_bundles(t)
+            _pack_overlapped(batches, step, cfg.compressed_dir, stats,
+                             packer, pending)
+            closes.append(packer.close_bundles_later(t))
+        _finish(packer, pending, closes, stats)
 
 
 def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
                         stats: dict, mesh=None) -> None:
     """One-timestep-at-a-time compression: read -> device codec -> host
-    pack -> free, adding to ``stats``.  Peak host memory is bounded by one
-    timestep (two with ``prefetch=1``), plus the ``globalcache`` budget in
-    global mode."""
+    pack -> free, adding to ``stats``.  The pack is one stream over the
+    whole call (:func:`_pack_overlapped`): timestep t+1 is read and stepped
+    while t's members pack, and this thread waits only when the
+    coefficients in flight reach their bound, and at the end, for the
+    last members and bundle closes.  Peak host memory: at most two
+    batches' coefficients (two of the largest batch's bytes) in the
+    stream, plus one timestep being read (its boxes freed batch by batch
+    as they are stepped), as the two timesteps ``prefetch=1`` has always
+    held; with ``prefetch=1`` one timestep more; plus the ``globalcache``
+    budget in global mode.  A timestep's bundle is closed once its last
+    member is appended, so a crash costs the timesteps in flight; after a
+    failed member no later bundle is closed."""
     eng = engine.CodecEngine(device=cfg.device, scales=cfg.scales, mesh=mesh,
                              giant_box_bytes=cfg.giant_box_bytes,
                              giant_mesh_mode=cfg.giant_mesh, stats=stats)
@@ -440,7 +483,8 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
         if (bases[t + 1] <= lo or bases[t] >= hi) and not (
                 crosshost and has_giant(t)):
             return [], None
-        with span("compress.read", stats, "read_seconds", args=(t,)):
+        with packer.stream.overlap(stats), span(
+                "compress.read", stats, "read_seconds", args=(t,)):
             lv_boxes = [plotfile.read_level(meta.files[t], lev,
                                             meta.comp_idxs)
                         for lev in meta.levels]
@@ -458,31 +502,32 @@ def _compress_streaming(cfg: common.Config, meta: common.RunMeta,
                                             pad_fn=eng.pad_multiple_for)
         return batches, owned
 
-    if cfg.threshold_mode == "global":
-        bundle_bytes = _compress_global(cfg, meta, eng, packer, have,
-                                        timestep_batches, stats, crosshost)
-    else:
-        bundle_bytes = 0
-        for t, (batches, owned) in _iter_prefetched(
-                len(meta.files), lambda t: timestep_batches(t, cfg.resume),
-                cfg.prefetch):
-            # timestep boundary: the link is quiescent here (the prefetch
-            # worker only reads the disk), so a stale transfer=auto probe
-            # can re-run without measuring the pipeline's own transfers
-            if cfg.transfer == "auto":
-                engine.CodecEngine.reprobe_link_if_stale()
-            _pack_overlapped(batches, _box_step(eng, packer, cfg.keep,
-                                                cfg.transfer, stats, owned),
-                             cfg.compressed_dir, stats)
-            # a finished timestep's bundle is closed right away: a crash
-            # costs one timestep, like the per-file mode
-            bundle_bytes += _close(packer, stats, t)
+    with _quiesce_on_error(packer):
+        if cfg.threshold_mode == "global":
+            _compress_global(cfg, meta, eng, packer, have, timestep_batches,
+                             stats, crosshost)
+        else:
+            pending, closes = [], []
+            for t, (batches, owned) in _iter_prefetched(
+                    len(meta.files),
+                    lambda t: timestep_batches(t, cfg.resume), cfg.prefetch):
+                # timestep boundary: the link is quiescent here (the
+                # prefetch worker only reads the disk), so a stale
+                # transfer=auto probe can re-run without measuring the
+                # pipeline's own transfers
+                if cfg.transfer == "auto":
+                    engine.CodecEngine.reprobe_link_if_stale()
+                _pack_overlapped(
+                    batches, _box_step(eng, packer, cfg.keep, cfg.transfer,
+                                       stats, owned),
+                    cfg.compressed_dir, stats, packer, pending)
+                # the timestep's bundle closes once its members are in: a
+                # crash costs the timesteps in flight, like the file mode
+                closes.append(packer.close_bundles_later(t))
+            _finish(packer, pending, closes, stats)
     if stats["skipped"]:
         log.info("Resume: skipped %d already-compressed items",
                  stats["skipped"])
-    bundle_bytes += _close(packer, stats)
-    if packer.archive_format == "bundle":
-        stats["output_bytes"] = bundle_bytes
 
 
 def compress_collected(run: common.RunData, keep: float, out_dir: str,
@@ -551,11 +596,12 @@ def compress_collected(run: common.RunData, keep: float, out_dir: str,
         return {"files": n_files, "input_bytes": in_bytes,
                 "output_bytes": out_bytes, "global_threshold": float(t),
                 "skipped": skipped}
-    _pack_overlapped(batches, _box_step(eng, packer, keep, transfer, stats),
-                     out_dir, stats)
-    bundle_bytes = _close(packer, stats)
-    if packer.archive_format == "bundle":
-        stats["output_bytes"] = bundle_bytes
+    pending = []
+    with _quiesce_on_error(packer):
+        _pack_overlapped(batches, _box_step(eng, packer, keep, transfer,
+                                            stats),
+                         out_dir, stats, packer, pending)
+        _finish(packer, pending, [], stats)
     stats["skipped"] = skipped
     return stats
 

@@ -20,10 +20,12 @@ a system call.  The stages are the ones the pipelines' stats report:
   ``decompress.write``; inside a device step
   ``engine.h2d``, ``engine.launch``, ``engine.d2h``, ``engine.threshold``,
   ``engine.free``; ``kernels.build``;
-- the pack thread: ``pack.batch``; the packer's worker threads:
-  ``pack.member``, ``pack.xz``, ``unpack.member``, ``unpack.xz``.  A
-  worker's span adds to no shared dict: its member returns the seconds and
-  the caller sums them.
+- the calling thread also opens ``pack.batch``, the hand-over of a
+  batch's members to the packer's stream; the packer's worker threads:
+  ``pack.serialize``, ``pack.member``, ``pack.xz``, ``unpack.member``,
+  ``unpack.xz``.  A worker's span adds to no shared dict: the pack stream
+  sums its members' seconds under its lock, and an unpack's caller sums
+  the seconds its members return.
 
 :func:`phase_timer` is a span that also logs the reference's phase lines
 (``wavelet_tpu/runtime/debug.py`` has the JAX package's copy; the port

@@ -78,6 +78,7 @@ from wavelet_tpu_torch.runtime import mesh as mesh_lib
 from wavelet_tpu_torch.runtime.batching import ShapeBatch
 from wavelet_tpu_torch.runtime.debug import span
 from wavelet_tpu_torch.runtime.mesh import resolve_device
+from wavelet_tpu_torch.runtime.packstream import PackStream
 from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
                                        packed_cuda, pyramid_cuda)
 
@@ -916,8 +917,7 @@ class CodecEngine:
                 "lane-packed on the halves route at scales=1)")
 
 
-# what each member of a pack / an unpack returns beside its output
-_PACK_KEYS = ("pack_cpu_seconds", "xz_in_bytes", "xz_cpu_seconds")
+# what each member of an unpack returns beside its output
 _UNPACK_KEYS = ("unpack_cpu_seconds", "xz_decoded_bytes",
                 "xz_decode_cpu_seconds")
 
@@ -941,15 +941,26 @@ class HostPacker:
     ``.xz`` per (t, lev, comp, box), reference-compatible) and ``bundle``
     (one container per timestep; callers must :meth:`close_bundles`).
 
-    ``stats`` (a dict, by default the packer's own) receives, on the
-    thread that calls :meth:`pack` or :meth:`pack_sparse`, the
-    ``pack_seconds`` of the call (span ``pack.batch``) and, summed over its
-    members, ``pack_cpu_seconds`` (the workers' thread CPU, span
-    ``pack.member``), ``xz_in_bytes`` (serialized payload bytes into the
-    member codec) and ``xz_cpu_seconds`` (span ``pack.xz``); on the
-    unpack side ``unpack_cpu_seconds``, ``xz_decoded_bytes`` and
+    The pack side is one stream per packer (``self.stream``,
+    :class:`runtime.packstream.PackStream`): :meth:`submit` and
+    :meth:`submit_sparse` queue a batch's members and return a Future of
+    its bytes at once, and the packer's workers pack the queued members of
+    every batch, largest first, with no barrier between batches, on
+    either backend (the native one a member a call); :meth:`pack` and
+    :meth:`pack_sparse` submit and wait.  Bundle members are appended in
+    submission order, and :meth:`close_bundles_later` closes a timestep's
+    bundle once the members submitted before it are in, so the bytes do
+    not depend on the order the workers finish in.
+
+    ``stats`` (a dict, by default the packer's own) receives from the
+    stream ``pack_seconds`` (the union of the intervals in which a batch
+    is in flight) and, summed over the members, ``pack_cpu_seconds`` (the
+    workers' thread CPU, spans ``pack.size`` and ``pack.member``),
+    ``xz_in_bytes`` (serialized payload bytes into the member codec) and
+    ``xz_cpu_seconds`` (span ``pack.xz``); on the unpack side
+    ``unpack_cpu_seconds``, ``xz_decoded_bytes`` and
     ``xz_decode_cpu_seconds`` (spans ``unpack.member``, ``unpack.xz``).
-    The native backend's workers are C++ threads: its calls add
+    The native backend codes a member on a C++ thread: its batches add
     ``pack_seconds`` only.
     """
 
@@ -975,6 +986,11 @@ class HostPacker:
         if use_native is None:
             use_native = native.available()
         self.use_native = use_native and native.available()
+        self.stream = PackStream(
+            self.workers, self.stats,
+            append=(self._append_member if archive_format == "bundle"
+                    else None),
+            close=self._close_writers)
 
     def _add_member_stats(self, results, keys) -> list:
         """Sum the members' ``(out, *counts)`` into ``stats[keys]``;
@@ -1006,22 +1022,26 @@ class HostPacker:
             w = self._writers[key] = bundle.BundleWriter(path)
         return w
 
-    def _append_members(self, dir_: str, items, blobs) -> int:
-        """Append (item, blob) pairs in item order (deterministic bytes)."""
-        total = 0
-        for it, blob in zip(items, blobs):
-            total += self._writer(dir_, it.t).add(
-                it.t, it.level, it.comp_idx, it.box, blob)
-        return total
+    def _append_member(self, dir_: str, it, blob) -> int:
+        return self._writer(dir_, it.t).add(it.t, it.level, it.comp_idx,
+                                            it.box, blob)
 
-    def close_bundles(self, t: int | None = None) -> int:
-        """Finalize open bundles (all, or only timestep ``t``'s); returns
-        the container bytes written."""
+    def _close_writers(self, t: int | None) -> int:
         total = 0
         for key in list(self._writers):
             if t is None or key[1] == int(t):
                 total += self._writers.pop(key).close()
         return total
+
+    def close_bundles_later(self, t: int | None = None) -> cf.Future:
+        """Finalize open bundles (all, or only timestep ``t``'s), fsync
+        included, once every batch submitted before has been appended;
+        -> a Future of the container bytes written."""
+        return self.stream.close_later(t)
+
+    def close_bundles(self, t: int | None = None) -> int:
+        """:meth:`close_bundles_later`, waited for."""
+        return self.close_bundles_later(t).result()
 
     def _bundle_set(self, dir_: str) -> bundle.BundleSet:
         bs = self._bundle_sets.get(dir_)
@@ -1052,88 +1072,115 @@ class HostPacker:
         _atomic_write(path, blob)
         return len(blob), xz.cpu_seconds
 
+    def _serializer(self):
+        return (archive.serialize_payload_q16 if self.payload == "q16"
+                else archive.serialize_payload)
+
+    def _member(self, out_dir: str, items, shape, pairs):
+        """``encode(k)`` for the stream on the Python codec: member ``k``'s
+        ``pairs(k) -> (kept positions, values)`` RLE-coded, serialized,
+        xz'd and, in files mode, written."""
+        paths = (None if self.archive_format == "bundle"
+                 else self._paths(out_dir, items))
+        serialize = self._serializer()
+
+        def encode(k):
+            with span("pack.member", cpu=True) as member:
+                idx, vals = pairs(k)
+                payload = serialize(shape, rle.rle_encode_pairs(idx), vals)
+                out, xz_cpu = self._encode(
+                    payload, None if paths is None else paths[k])
+            return out, {"pack_cpu_seconds": member.cpu_seconds,
+                         "xz_in_bytes": len(payload),
+                         "xz_cpu_seconds": xz_cpu}
+        return encode
+
+    def submit(self, out_dir: str, coeff_batch: ShapeBatch,
+               t32: np.ndarray, subset=None) -> cf.Future:
+        """Queue threshold+RLE+xz+write of the items of a coefficient
+        ShapeBatch (padding slots ignored; ``subset`` restricts to those
+        item indices) and return at once: a Future of the compressed
+        bytes (span ``pack.batch``: the hand-over).  Each member is
+        sized by its kept count (span ``pack.size``) and packed whole,
+        on the NumPy + ``lzma`` codec or, one member a call, the native
+        one (whose C++ thread the counters do not see)."""
+        rows, row_len, row_stride = self._geometry(coeff_batch)
+        sel = (list(range(len(coeff_batch.items))) if subset is None
+               else list(subset))
+        chosen = [coeff_batch.items[i] for i in sel]
+        t32 = np.asarray(t32)
+
+        def size(k):
+            with span("pack.size", cpu=True) as s:
+                i = sel[k]
+                n = int(np.count_nonzero(
+                    np.abs(coeff_batch.item_view(i)) > t32[i]))
+            return n, ({} if self.use_native
+                       else {"pack_cpu_seconds": s.cpu_seconds})
+
+        if self.use_native:
+            encode = self._native_member(out_dir, coeff_batch, t32, sel,
+                                         chosen, rows, row_len, row_stride)
+        else:
+            def pairs(k):
+                i = sel[k]
+                flat = np.ascontiguousarray(
+                    coeff_batch.item_view(i)).reshape(-1)
+                idx = np.flatnonzero(np.abs(flat) > t32[i])
+                return idx, flat[idx]
+            encode = self._member(out_dir, chosen, coeff_batch.shape, pairs)
+        with span("pack.batch", args=(*coeff_batch.shape, len(sel))):
+            return self.stream.submit(coeff_batch.data.nbytes, out_dir,
+                                      chosen, size, encode)
+
+    def _native_member(self, out_dir, coeff_batch, t32, sel, items, rows,
+                       row_len, row_stride):
+        """``encode(k)`` for the stream on the native codec: one member a
+        call, on one C++ thread."""
+        offsets = coeff_batch.item_offsets()
+        paths = (None if self.archive_format == "bundle"
+                 else self._paths(out_dir, items))
+        kw = dict(payload=self.payload, codec=self.codec,
+                  preset=self.xz_preset)
+
+        def encode(k):
+            i = sel[k]
+            with span("pack.member"):
+                if paths is None:
+                    out = native.encode_strided(
+                        coeff_batch.data, t32[i:i + 1], coeff_batch.shape,
+                        rows, row_len, row_stride, offsets[i:i + 1], 1,
+                        **kw)[0]
+                else:
+                    out = native.pack_strided(
+                        coeff_batch.data, t32[i:i + 1], coeff_batch.shape,
+                        [paths[k]], rows, row_len, row_stride,
+                        offsets[i:i + 1], 1, **kw)
+            return out, {}
+        return encode
+
     def pack(self, out_dir: str, coeff_batch: ShapeBatch,
              t32: np.ndarray, subset=None) -> int:
-        """Threshold+RLE+xz+write items of a coefficient ShapeBatch
-        (padding slots ignored; ``subset`` restricts to those item
-        indices).  Returns total compressed bytes."""
-        items = coeff_batch.items
-        rows, row_len, row_stride = self._geometry(coeff_batch)
-        sel = list(range(len(items))) if subset is None else list(subset)
-        bundled = self.archive_format == "bundle"
-        with span("pack.batch", self.stats, "pack_seconds",
-                  args=(*coeff_batch.shape, len(sel))):
-            if self.use_native:
-                if not sel:
-                    return 0
-                offsets = coeff_batch.item_offsets()
-                t32_sel = np.asarray(t32)[sel]
-                if bundled:
-                    blobs = native.encode_strided(
-                        coeff_batch.data, t32_sel, coeff_batch.shape, rows,
-                        row_len, row_stride, offsets[sel], self.workers,
-                        payload=self.payload, codec=self.codec,
-                        preset=self.xz_preset)
-                    return self._append_members(
-                        out_dir, [items[i] for i in sel], blobs)
-                return native.pack_strided(
-                    coeff_batch.data, t32_sel, coeff_batch.shape,
-                    self._paths(out_dir, [items[i] for i in sel]),
-                    rows, row_len, row_stride, offsets[sel], self.workers,
-                    payload=self.payload, codec=self.codec,
-                    preset=self.xz_preset)
+        """:meth:`submit`, waited for: the total compressed bytes."""
+        return self.submit(out_dir, coeff_batch, t32, subset).result()
 
-            serialize = (archive.serialize_payload_q16
-                         if self.payload == "q16"
-                         else archive.serialize_payload)
-            paths = None if bundled else self._paths(out_dir, items)
-
-            def one(i):
-                with span("pack.member", cpu=True) as member:
-                    flat = np.ascontiguousarray(
-                        coeff_batch.item_view(i)).reshape(-1)
-                    mask = np.abs(flat) > t32[i]
-                    runs, vals = rle.rle_encode_mask(mask, flat)
-                    payload = serialize(coeff_batch.shape, runs, vals)
-                    out, xz_cpu = self._encode(
-                        payload, None if bundled else paths[i])
-                return out, member.cpu_seconds, len(payload), xz_cpu
-
-            with cf.ThreadPoolExecutor(self.workers) as ex:
-                results = self._add_member_stats(list(ex.map(one, sel)),
-                                                 _PACK_KEYS)
-            if bundled:
-                return self._append_members(
-                    out_dir, [items[i] for i in sel], results)
-            return sum(results)
+    def submit_sparse(self, out_dir: str, sparse: SparseCoeffs,
+                      t32: np.ndarray) -> cf.Future:
+        """Queue the pack of device-sparsified (index, value) pairs — no
+        dense coefficient array ever reaches the host — and return at
+        once: a Future of the compressed bytes.  Bytes identical to the
+        dense path (same mask, same RLE); always the Python codec."""
+        encode = self._member(out_dir, sparse.items, sparse.shape,
+                              lambda k: sparse.item_pairs(k, float(t32[k])))
+        with span("pack.batch", args=(*sparse.shape, len(sparse.items))):
+            return self.stream.submit(
+                sparse.transfer_bytes(), out_dir, sparse.items,
+                lambda k: (int(sparse.counts[k]), {}), encode)
 
     def pack_sparse(self, out_dir: str, sparse: SparseCoeffs,
                     t32: np.ndarray) -> int:
-        """Pack from device-sparsified (index, value) pairs — no dense
-        coefficient array ever reaches the host.  Bytes identical to the
-        dense path (same mask, same RLE)."""
-        bundled = self.archive_format == "bundle"
-        paths = None if bundled else self._paths(out_dir, sparse.items)
-        serialize = (archive.serialize_payload_q16 if self.payload == "q16"
-                     else archive.serialize_payload)
-
-        def one(i):
-            with span("pack.member", cpu=True) as member:
-                idx, vals = sparse.item_pairs(i, float(t32[i]))
-                runs = rle.rle_encode_pairs(idx)
-                payload = serialize(sparse.shape, runs, vals)
-                out, xz_cpu = self._encode(payload,
-                                           None if bundled else paths[i])
-            return out, member.cpu_seconds, len(payload), xz_cpu
-
-        with span("pack.batch", self.stats, "pack_seconds",
-                  args=(*sparse.shape, len(sparse.items))):
-            with cf.ThreadPoolExecutor(self.workers) as ex:
-                results = self._add_member_stats(
-                    list(ex.map(one, range(len(sparse.items)))), _PACK_KEYS)
-            if bundled:
-                return self._append_members(out_dir, sparse.items, results)
-            return sum(results)
+        """:meth:`submit_sparse`, waited for."""
+        return self.submit_sparse(out_dir, sparse, t32).result()
 
     def unpack_sparse(self, in_dir: str, batch: ShapeBatch):
         """Decode payloads to padded (logical position, value) pair arrays

@@ -435,9 +435,11 @@ def bench_overlapped_pipeline(device="cuda", n=48, d=64, root=None):
             batches = batching.plan_batches(items, pack_fn=eng.pack_factor,
                                             max_batch_bytes=16 << 20)
             t0 = time.perf_counter()
+            pending = []
             cmod._pack_overlapped(
                 batches, cmod._box_step(eng, packer, keep, "dense", stats),
-                tdir, stats)
+                tdir, stats, packer, pending)
+            cmod._finish(packer, pending, [], stats)
             dt = time.perf_counter() - t0
         ib, ob = stats["input_bytes"], stats["output_bytes"]
         out[f"codec={codec}"] = {
