@@ -912,7 +912,6 @@ def _finish_config(data_dir, name, steps, bound, same_as, done, opts, res,
                    stats, nbytes) -> dict:
     import numpy as np
 
-    from wavelet_tpu_torch import native
     from wavelet_tpu_torch.io import plotfile
 
     archives = [_tree(os.path.join(WORK, f"{name}_arch_{d}"))
@@ -952,7 +951,6 @@ def _finish_config(data_dir, name, steps, bound, same_as, done, opts, res,
         res[f"payloads_equal_to_{ref}"] = len(payloads)
     res["archive_bytes"] = sum(len(b) for b in archives[0].values())
     res["plotfile_files"] = len(trees[0])
-    res["native_codec"] = bool(native.available())
     res["stages"] = {
         "compress": {k: cs[k] for k in ("compress_seconds", "read_seconds",
                                         "device_seconds",
@@ -2073,7 +2071,7 @@ def run_host_benches(kind: str) -> dict:
     if f["backend_disagreements"] or f["total_mutations"] != FUZZ_TRIALS * 13:
         raise AssertionError(f"(n) fuzz: {f}")
     _check_counts("n, fuzz", out["fuzz"]["launches"], {"haar_forward": 1})
-    out["fuzz"].update(surfaces=f["surfaces"], native=f["native"])
+    out["fuzz"]["surfaces"] = f["surfaces"]
     an = res["host_codec"]["analysis"]
     if not (an["device_compress_gbps"] > 0
             and an["device_card"]["name"] == kind
@@ -2082,11 +2080,8 @@ def run_host_benches(kind: str) -> dict:
     _check_counts("n, host codec", out["host_codec"]["launches"],
                   {"haar_forward": 1, "pyramid_forward": 1})
     out["host_codec"]["analysis"] = {
-        k: an.get(k) for k in ("device_compress_gbps",
-                               "device_scatter_stage_gbps",
-                               "cores_to_match_device_rate",
-                               "e2e_gbps_with_this_host")}
-    out["host_codec"]["native"] = res["host_codec"]["native"]
+        k: an[k] for k in ("device_compress_gbps",
+                           "device_scatter_stage_gbps")}
     for name, case in res["plotfile_io"]["cases"].items():
         if case["read_f32"]["f32_bytes"] != case["write_f32"]["src_bytes"]:
             raise AssertionError(f"(n) plotfile io {name}: {case}")

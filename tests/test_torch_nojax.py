@@ -13,10 +13,12 @@ imports and runs the measurement programs (``bench``, ``scripts.bench_e2e``,
 benches (``scripts.bench_ragged``, ``bench_quality``, ``bench_host_codec``,
 ``fuzz_campaign``, ``bench_plotfile_io``) at a tiny size, and reports
 every module of jax or of ``wavelet_tpu`` that got loaded.  Each host
-bench answers ``python -m ... --help``.  A source scan refuses any import of either in the port,
+bench answers ``python -m ... --help``.  A fresh process that compresses
+through ``wavelet_tpu_torch.api`` maps no shared object of ``native/``.  A source scan refuses any import of either in the port,
 ``chip_smoke.py`` and ``profile_runs.py``.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -108,6 +110,48 @@ def test_port_runs_without_jax(tmp_path):
                        timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
     assert "LOADED []" in p.stdout, p.stdout
+
+
+_MAPS_SCRIPT = r"""
+import json, os, sys
+import numpy as np
+from wavelet_tpu_torch import api
+from wavelet_tpu_torch.io import plotfile
+
+root = sys.argv[1]
+box = np.random.default_rng(0).standard_normal((1, 8, 8, 8))
+plotfile.write_plotfile(os.path.join(root, "data", "plt00001"),
+                        [[box.astype(np.float32)]], [[(0, 0, 0)]],
+                        [[(8, 8, 8)]], ["a"], 0.0, [0.0] * 3, [1.0] * 3,
+                        (2, 2, 2), (8, 8, 8), [1])
+st = api.compress(os.path.join(root, "data"), os.path.join(root, "arch"),
+                  min_time="plt00001", max_time="plt00001", components=["a"],
+                  device="cpu")
+assert st["files"] == 1, st
+with open("/proc/self/maps") as f:
+    print("MAPPED", json.dumps(sorted({line.split()[-1] for line in f
+                                       if ".so" in line})))
+"""
+
+
+@pytest.mark.skipif(not os.path.exists("/proc/self/maps"),
+                    reason="needs /proc/self/maps")
+def test_port_compress_maps_no_native_codec(tmp_path):
+    """A fresh process that imports ``wavelet_tpu_torch.api`` and runs a
+    tiny CPU compress maps no shared object of the repository's C++ codec
+    directory ``native/`` (the JAX package's): the port's host codec is
+    NumPy and liblzma, the one the card's machine runs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    p = subprocess.run([sys.executable, "-c", _MAPS_SCRIPT, str(tmp_path)],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    [line] = [ln for ln in p.stdout.splitlines() if ln.startswith("MAPPED")]
+    native_dir = os.path.join(os.path.realpath(REPO), "native") + os.sep
+    mapped = json.loads(line[len("MAPPED "):])
+    assert any("torch" in m for m in mapped), mapped
+    assert not [m for m in mapped
+                if os.path.realpath(m).startswith(native_dir)], mapped
 
 
 @pytest.mark.parametrize("name", ["bench_ragged", "bench_quality",

@@ -8,10 +8,8 @@ both layouts and at any worker count; the next timestep's read must run
 while the last one's members pack, and ``pack_overlap_seconds`` must say
 so; a member that fails must reach the caller and leave no later bundle
 closed, and a ``resume=1`` rerun must then complete the archive as a
-clean run writes it.
-
-The Python codec is forced (``native.available`` reads False) unless a
-test says otherwise.
+clean run writes it.  The streamed archive is also the one the JAX
+package writes with its native C++ codec.
 """
 
 import os
@@ -25,7 +23,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import wavelet_tpu_torch  # noqa: E402
-from wavelet_tpu_torch import native  # noqa: E402
 from wavelet_tpu_torch.io import archive, bundle, plotfile  # noqa: E402
 from wavelet_tpu_torch.runtime import batching, engine  # noqa: E402
 
@@ -80,10 +77,8 @@ class _OneAtATime(engine.HostPacker):
 
 
 def _compress(data, out, mode, packer_cls, monkeypatch, times=TIMES,
-              native_ok=False, **opts):
+              **opts):
     with monkeypatch.context() as mp:
-        if not native_ok:
-            mp.setattr(native, "available", lambda: False)
         mp.setattr(engine, "HostPacker", packer_cls)
         return wavelet_tpu_torch.compress(
             data, out, min_time=times[0], max_time=times[-1],
@@ -182,7 +177,6 @@ def test_a_single_batch_shows_no_overlap(data, tmp_path, monkeypatch):
         [[(0, 0, 0)]], [[(8, 8, 8)]], COMPS, 0.5, [0.0, 0.0, 0.0],
         [1.0, 1.0, 1.0], (2, 2, 2), (8, 8, 8), [10])
     with monkeypatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
         mp.setattr(engine, "HostPacker", _workers(1))
         st = wavelet_tpu_torch.compress(
             root, str(tmp_path / "a"), min_time="plt00010",
@@ -230,8 +224,7 @@ def test_largest_payload_first_across_batches(tmp_path, monkeypatch, mode):
     monkeypatch.setattr(archive, "encode_blob", gated)
     for d in ("s", "one"):
         (tmp_path / d).mkdir()
-    packer = engine.HostPacker(workers=1, use_native=False,
-                               archive_format=mode)
+    packer = engine.HostPacker(workers=1, archive_format=mode)
     fa = packer.submit(str(tmp_path / "s"), a, ta)
     deadline = time.monotonic() + 30
     while not order and time.monotonic() < deadline:
@@ -248,7 +241,7 @@ def test_largest_payload_first_across_batches(tmp_path, monkeypatch, mode):
         lengths[-1].append(len(payload))
         return real(payload, *a, **k)
     monkeypatch.setattr(archive, "encode_blob", logged)
-    one = engine.HostPacker(workers=1, use_native=False, archive_format=mode)
+    one = engine.HostPacker(workers=1, archive_format=mode)
     for cb, t32 in ((a, ta), (b, tb)):
         lengths.append([])
         one.pack(str(tmp_path / "one"), cb, t32)
@@ -262,16 +255,23 @@ def test_largest_payload_first_across_batches(tmp_path, monkeypatch, mode):
     assert _tree(str(tmp_path / "s")) == _tree(str(tmp_path / "one"))
 
 
-@pytest.mark.skipif(not native.available(),
-                    reason="the native codec does not build on this host")
 @pytest.mark.parametrize("mode", MODES)
-def test_native_backend_keeps_its_bytes(data, reference, mode, tmp_path,
-                                        monkeypatch):
-    out = str(tmp_path / "a")
-    st = _compress(data, out, mode, engine.HostPacker, monkeypatch,
-                   native_ok=True)
-    assert _tree(out) == reference[mode]
-    assert st["pack_seconds"] > 0 and "pack_cpu_seconds" not in st
+def test_native_backend_keeps_its_bytes(data, mode, tmp_path, monkeypatch):
+    """The port's streamed archive, on its one codec, is byte for byte the
+    one ``wavelet_tpu`` writes with its native C++ codec."""
+    from wavelet_tpu import api as japi
+    from wavelet_tpu import native as jnative
+
+    if not jnative.available():
+        pytest.skip("the JAX package's native codec does not build here")
+    out, jout = str(tmp_path / "a"), str(tmp_path / "jax")
+    st = _compress(data, out, mode, engine.HostPacker, monkeypatch)
+    jst = japi.compress(data, jout, min_time=TIMES[0], max_time=TIMES[-1],
+                        components=COMPS, min_level=0, max_level=1,
+                        keep=0.999, archive=mode)
+    assert jst["files"] == st["files"]
+    assert _tree(out) == _tree(jout)
+    assert st["pack_cpu_seconds"] > 0 and st["xz_in_bytes"] > 0
 
 
 def _planted(monkeypatch, t_bad):

@@ -292,12 +292,10 @@ def test_unknown_layout_raises_and_default_refuses_packed_batches():
 
 @pytest.mark.parametrize("native", [True, False])
 def test_packer_walks_packed_batches(tmp_path, native):
-    """pack / unpack_into on packed batches equal the pack=1 walk, with
-    the native strided codec and with the Python item views."""
-    from wavelet_tpu_torch import native as native_mod
-
-    if native and not native_mod.available():
-        pytest.skip("native codec not built")
+    """pack / unpack_into on packed batches equal the pack=1 walk; with
+    ``native``, the packed batch's members are also those the JAX
+    package's native strided codec writes from the same buffer, and the
+    packer scatters that codec's members back as it does."""
     dims = (4, 8, 16)
     eng = engine.CodecEngine(device="cpu", layout="halves")
     entries = _entries(batching, 5, dims, 9)
@@ -305,14 +303,27 @@ def test_packer_walks_packed_batches(tmp_path, native):
     [ub] = batching.plan_batches(entries)
     cb, t32 = eng.compress_shapebatch(pb, 0.99)
     ucb, ut32 = engine.CodecEngine(device="cpu").compress_shapebatch(ub, 0.99)
-    packer = engine.HostPacker(use_native=native)
+    packer = engine.HostPacker()
     (tmp_path / "p").mkdir()
     (tmp_path / "u").mkdir()
     packer.pack(str(tmp_path / "p"), cb, t32)
     packer.pack(str(tmp_path / "u"), ucb, ut32)
     assert tree_bytes(tmp_path / "p") == tree_bytes(tmp_path / "u")
+    if native:
+        from wavelet_tpu import native as jnative
+
+        if not jnative.available():
+            pytest.skip("the JAX package's native codec does not build here")
+        x, y, z = dims
+        i = np.arange(5)
+        offsets = (i // cb.pack) * (x * y * cb.pack * z) + (i % cb.pack) * z
+        (tmp_path / "n").mkdir()
+        jnative.pack_strided(cb.data, t32, dims,
+                             packer._paths(str(tmp_path / "n"), cb.items),
+                             x * y, z, cb.pack * z, offsets, 1)
+        assert tree_bytes(tmp_path / "n") == tree_bytes(tmp_path / "p")
     dest = batching.empty_batch(pb.items, dims, pack=8)
-    packer.unpack_into(str(tmp_path / "p"), dest)
+    packer.unpack_into(str(tmp_path / ("n" if native else "p")), dest)
     for i in range(5):
         want = np.where(np.abs(ucb.item_view(i)) > ut32[i],
                         ucb.item_view(i), 0.0)

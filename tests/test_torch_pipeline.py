@@ -30,7 +30,7 @@ from wavelet_tpu.pipeline import Config as JConfig  # noqa: E402
 from wavelet_tpu.pipeline import compress_run as j_compress  # noqa: E402
 from wavelet_tpu.pipeline import decompress_run as j_decompress  # noqa: E402
 import wavelet_tpu_torch  # noqa: E402
-from wavelet_tpu_torch import cli, native  # noqa: E402
+from wavelet_tpu_torch import cli  # noqa: E402
 from wavelet_tpu_torch.pipeline import decompress as t_decompress  # noqa: E402
 from wavelet_tpu_torch.runtime import engine  # noqa: E402
 
@@ -133,13 +133,11 @@ class _TwoWorkers(engine.HostPacker):
 @pytest.mark.parametrize("variant", ["default", "bundle", "q16", "scales2"])
 def test_streamed_decompress_matches_jax(runs, variant, tmp_path,
                                          monkeypatch):
-    """The port's streamed decode (the Python codec on two workers with
-    no chunk floor: each timestep's 8^3 bucket of four members decodes
+    """The port's streamed decode (two workers with no chunk floor: each timestep's 8^3 bucket of four members decodes
     largest first in two chunks of two rows, each chunk's device stage
     and assemble on its own) regenerates the JAX package's plotfiles of
     the JAX package's archive byte for byte."""
     j_arch, _, j_out = runs[variant]
-    monkeypatch.setattr(native, "available", lambda: False)
     monkeypatch.setattr(engine, "HostPacker", _TwoWorkers)
     monkeypatch.setattr(t_decompress, "_STREAM_MIN_CHUNK_BYTES", 0)
     stats = wavelet_tpu_torch.decompress(j_arch, str(tmp_path / "t"),

@@ -24,7 +24,7 @@ torch.set_num_threads(2)
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import wavelet_tpu_torch  # noqa: E402
-from wavelet_tpu_torch import cli, native  # noqa: E402
+from wavelet_tpu_torch import cli  # noqa: E402
 from wavelet_tpu_torch.io import plotfile  # noqa: E402
 from wavelet_tpu_torch.pipeline import common  # noqa: E402
 from wavelet_tpu_torch.pipeline.decompress import \
@@ -117,27 +117,22 @@ def _events(prof, names):
 def runs(tmp_path_factory):
     """Per mode: the compress stats, the archive's files and the regen
     stats and boxes, without and with the profiler (and its events)."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(native, "available", lambda: False)
     root = tmp_path_factory.mktemp("spans")
     data = _write_data(str(root))
     out = {}
-    try:
-        for mode in MODES:
-            plain = str(root / f"{mode}_plain")
-            traced = str(root / f"{mode}_traced")
-            cstats = _compress(data, plain, mode)
-            rstats, boxes = _regen(plain)
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
-                _compress(data, traced, mode)
-                _, tboxes = _regen(traced)
-            out[mode] = {"cstats": cstats, "rstats": rstats,
-                         "tree": _tree(plain), "boxes": boxes,
-                         "ttree": _tree(traced), "tboxes": tboxes,
-                         "events": _events(prof, set(COMPRESS_SPANS)
-                                           | set(REGEN_SPANS))}
-    finally:
-        mp.undo()
+    for mode in MODES:
+        plain = str(root / f"{mode}_plain")
+        traced = str(root / f"{mode}_traced")
+        cstats = _compress(data, plain, mode)
+        rstats, boxes = _regen(plain)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _compress(data, traced, mode)
+            _, tboxes = _regen(traced)
+        out[mode] = {"cstats": cstats, "rstats": rstats,
+                     "tree": _tree(plain), "boxes": boxes,
+                     "ttree": _tree(traced), "tboxes": tboxes,
+                     "events": _events(prof, set(COMPRESS_SPANS)
+                                       | set(REGEN_SPANS))}
     return out
 
 
@@ -238,7 +233,6 @@ def test_no_range_without_a_profiler(tmp_path, monkeypatch):
             return False
 
     monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", Counting)
-    monkeypatch.setattr(native, "available", lambda: False)
     data = _write_data(str(tmp_path))
     stats = _compress(data, str(tmp_path / "a"), "bundle")
     _regen(str(tmp_path / "a"))
@@ -248,6 +242,23 @@ def test_no_range_without_a_profiler(tmp_path, monkeypatch):
         with span("outer"):
             pass
     assert entered == [("outer", [])]
+
+
+def test_default_packer_reports_the_codec_counters(tmp_path):
+    """A ``HostPacker`` built with its defaults, nothing patched, packs and
+    unpacks on the codec whose counters the benchmark reads: compress
+    reports the workers' CPU and the xz bytes and seconds, and decompress
+    the decode workers' CPU."""
+    data = _write_data(str(tmp_path))
+    arch, out = str(tmp_path / "a"), str(tmp_path / "o")
+    st = wavelet_tpu_torch.compress(
+        data, arch, min_time="plt00010", max_time="plt00020",
+        components=COMPS, min_level=0, max_level=1, device="cpu")
+    for key in ("pack_cpu_seconds", "xz_in_bytes", "xz_cpu_seconds"):
+        assert st[key] > 0, key
+    dst = wavelet_tpu_torch.decompress(arch, out, device="cpu")
+    assert dst["unpack_cpu_seconds"] > 0
+    assert dst["xz_decoded_bytes"] == st["xz_in_bytes"]
 
 
 def test_span_nests_and_sums():
@@ -300,8 +311,7 @@ def test_pack_thread_and_caller_share_one_stats_dict(tmp_path):
     cb, t32 = eng.compress_shapebatch(
         batching.ShapeBatch(shape=(8, 8, 8), data=data, items=items,
                             n_valid=n), 0.9)
-    packer = HostPacker(workers=32, use_native=False, stats=stats,
-                        archive_format="bundle")
+    packer = HostPacker(workers=32, stats=stats, archive_format="bundle")
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -320,7 +330,7 @@ def test_pack_thread_and_caller_share_one_stats_dict(tmp_path):
     packer.close_bundles()
     assert stats["caller_seconds"] == sum(handles)
     # four packs of the same members: four times one pack's payload bytes
-    one = HostPacker(workers=1, use_native=False, archive_format="bundle")
+    one = HostPacker(workers=1, archive_format="bundle")
     (tmp_path / "one").mkdir()
     one.pack(str(tmp_path / "one"), cb, t32)
     one.close_bundles()
@@ -330,7 +340,6 @@ def test_pack_thread_and_caller_share_one_stats_dict(tmp_path):
 def test_cli_profile_records_worker_spans(tmp_path, monkeypatch):
     """``profile=DIR`` traces every thread: the packer's member spans are
     in the Chrome trace beside the calling thread's."""
-    monkeypatch.setattr(native, "available", lambda: False)
     data = _write_data(str(tmp_path))
     trace = tmp_path / "trace"
     rc = cli.main([f"datadir={data}", "minfile=plt00010",
@@ -358,7 +367,6 @@ def test_global_mode_spans_and_counters(tmp_path, monkeypatch, cache):
     many timesteps pass 2 took from the cache and how many it re-read.
     One process sums no histogram, so ``compress.allreduce`` is absent
     (the four-rank run of ``tests/test_wtbench_global4.py`` has it)."""
-    monkeypatch.setattr(native, "available", lambda: False)
     data = _write_data(str(tmp_path))
     extra = {} if cache == "cached" else {"global_cache_bytes": 0}
     with profile(activities=[ProfilerActivity.CPU]) as prof:

@@ -5,13 +5,12 @@ A shape bucket of many dense, unpacked boxes decodes largest member first
 on the packer's pool, and its device stage and assemble run a chunk of
 rows at a time while the later chunks decode.  The regenerated boxes must
 equal the one-shot path's bit for bit, in both archive layouts; buckets of
-lane-packed boxes, giant, sparse, preview and native buckets and buckets
-under two chunks keep the one-shot path; a corrupt member raises the
-one-shot path's ``ValueError`` and leaves no decode thread behind; and the
-counters say how much of the device stage ran under the decode.
+lane-packed boxes, giant, sparse and preview buckets and buckets under two
+chunks keep the one-shot path; a corrupt member raises the one-shot path's
+``ValueError`` and leaves no decode thread behind; and the counters say
+how much of the device stage ran under the decode.
 
-The Python codec is forced (``native.available`` reads False) and the
-packer has two workers; ``_STREAM_MIN_CHUNK_BYTES`` is 0 unless a test
+The packer has two workers; ``_STREAM_MIN_CHUNK_BYTES`` is 0 unless a test
 says otherwise, so that a bucket of 24 members of 32^3 is twelve chunks.
 """
 
@@ -25,7 +24,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import wavelet_tpu_torch  # noqa: E402
-from wavelet_tpu_torch import native  # noqa: E402
 from wavelet_tpu_torch.io import bundle, plotfile  # noqa: E402
 from wavelet_tpu_torch.pipeline import common, decompress  # noqa: E402
 from wavelet_tpu_torch.runtime import batching, engine  # noqa: E402
@@ -66,11 +64,9 @@ def _compress(data, out, mode, levels=1):
 
 
 def _regen(archive, min_chunk_bytes=0, **cfg):
-    """-> (stats, {(t, lev, box): array}) of a regen on the Python codec
-    with two workers."""
+    """-> (stats, {(t, lev, box): array}) of a regen with two workers."""
     stats, boxes = {}, {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
         mp.setattr(engine, "HostPacker", _Packer)
         mp.setattr(decompress, "_STREAM_MIN_CHUNK_BYTES", min_chunk_bytes)
         c = common.Config(compressed_dir=archive, device="cpu", **cfg)
@@ -166,7 +162,7 @@ def test_largest_first_puts_a_missing_member_last(archives):
 
 def _plan(cfg=None, eng=None, packer=None, dims=(64, 64, 64), n=48):
     eng = eng or engine.CodecEngine(device="cpu", layout="auto")
-    packer = packer or engine.HostPacker(workers=8, use_native=False)
+    packer = packer or engine.HostPacker(workers=8)
     cfg = cfg or common.Config(compressed_dir="-", device="cpu")
     return decompress._stream_rows(cfg, eng, packer, dims, n)
 
@@ -174,7 +170,7 @@ def _plan(cfg=None, eng=None, packer=None, dims=(64, 64, 64), n=48):
 def test_stream_rows_engage_on_large_dense_buckets():
     assert _plan() == 8                      # nyx: 48 members of 64^3
     assert _plan(n=16) == 8                  # two chunks exactly
-    packer = engine.HostPacker(workers=3, use_native=False)
+    packer = engine.HostPacker(workers=3)
     assert _plan(packer=packer, n=8) == 4    # 4 MiB: four boxes of 1 MiB
 
 
@@ -188,18 +184,12 @@ def _giant_engine(monkeypatch):
     return eng
 
 
-def _native_packer():
-    packer = engine.HostPacker(workers=8, use_native=False)
-    packer.use_native = True
-    return packer
-
-
 @pytest.mark.parametrize("case", ["packed", "packed_nyx", "giant", "sparse",
-                                  "preview", "native", "under_two_chunks",
+                                  "preview", "under_two_chunks",
                                   "small_boxes"])
 def test_stream_rows_bypass(case, monkeypatch):
-    """0 rows, the one-shot path, for packed, giant, sparse, preview and
-    native buckets, and for buckets under two chunks."""
+    """0 rows, the one-shot path, for packed, giant, sparse and preview
+    buckets, and for buckets under two chunks."""
     cfg = {"sparse": common.Config(compressed_dir="-", device="cpu",
                                    transfer="sparse"),
            "preview": common.Config(compressed_dir="-", device="cpu",
@@ -207,7 +197,6 @@ def test_stream_rows_bypass(case, monkeypatch):
     kw = {"packed": dict(eng=_packed_engine(), dims=(8, 8, 8), n=400),
           "packed_nyx": dict(eng=_packed_engine()),
           "giant": dict(eng=_giant_engine(monkeypatch)),
-          "native": dict(packer=_native_packer()),
           "under_two_chunks": dict(n=15),
           # 32^3 boxes: a 4 MiB chunk is 32 of them, so 48 are one chunk
           "small_boxes": dict(dims=(32, 32, 32))}.get(case, {})
@@ -279,8 +268,8 @@ def test_stream_under_a_short_switch_interval(archives):
     import sys
 
     dims = (32, 32, 32)
-    streamed = engine.HostPacker(workers=32, use_native=False)
-    one_shot = engine.HostPacker(workers=32, use_native=False)
+    streamed = engine.HostPacker(workers=32)
+    one_shot = engine.HostPacker(workers=32)
     a = batching.empty_batch(_items(), dims)
     b = batching.empty_batch(_items(), dims)
     bounds = [(lo, lo + 3) for lo in range(0, len(a.items), 3)]

@@ -17,9 +17,10 @@ the buffer encoder's block forms:
 
 Both of the writer's paths are held to it: liblzma's buffer encoder
 called through ctypes (without the delta filter, where liblzma loads) and
-stdlib ``lzma`` reframed.  Every case also decodes back to its payload.  Where the native codec is
-loaded, a box's member written by the sparse path (Python writer) equals
-the dense path's (native writer).  Skipped where liblzma is not found.
+stdlib ``lzma`` reframed.  Every case also decodes back to its payload.
+Where the JAX package's native codec loads, a box's member written by the
+port's sparse and dense paths equals the one that codec writes.  Skipped
+where liblzma is not found.
 """
 
 import ctypes
@@ -30,7 +31,6 @@ import os
 import numpy as np
 import pytest
 
-from wavelet_tpu_torch import native
 from wavelet_tpu_torch.io import archive
 from wavelet_tpu_torch.runtime import batching, engine
 
@@ -183,14 +183,17 @@ def _box(kept: int, seed: int):
 @pytest.mark.parametrize("kept,delta", [(2040, 8), (2040, 0), (40000, 0)],
                          ids=["16340B-delta8", "16340B", "320020B"])
 def test_sparse_member_equals_the_native_dense_member(tmp_path, kept, delta):
-    """The same box through ``HostPacker.pack`` on the native codec and
-    ``HostPacker.pack_sparse`` on the Python writer: one member's bytes,
-    and liblzma's.  A 16,340-byte payload under ``xzdelta=8`` is where
-    the header reserve of the delta chain takes the compressed-size
-    varint of ``lzma2_bound(n)`` (2 bytes) and not of a larger bound (3
-    bytes), which made the header 4 bytes longer than the native one."""
-    if not native.available():
-        pytest.skip("native codec not loaded")
+    """The same box through ``wavelet_tpu.native.pack_strided`` (the JAX
+    package's C++ codec) and the port's ``HostPacker.pack`` and
+    ``HostPacker.pack_sparse``: one member's bytes, and liblzma's.  A
+    16,340-byte payload under ``xzdelta=8`` is where the header reserve of
+    the delta chain takes the compressed-size varint of ``lzma2_bound(n)``
+    (2 bytes) and not of a larger bound (3 bytes), which made the header 4
+    bytes longer than the native one."""
+    from wavelet_tpu import native as jnative
+
+    if not jnative.available():
+        pytest.skip("the JAX package's native codec does not build here")
     flat = _box(kept, seed=kept + delta)
     item = batching.WorkItem(0, 0, 0, 0)
     dims = (64, 64, 64)
@@ -201,19 +204,24 @@ def test_sparse_member_equals_the_native_dense_member(tmp_path, kept, delta):
     sparse = engine.SparseCoeffs(
         shape=dims, items=[item], counts=np.array([kept], np.int32),
         idxs=idx[None], vals=flat[idx][None], cap=kept)
-    blobs = {}
-    for kind, use_native in (("dense", True), ("sparse", False)):
+    m = flat.size
+    word = archive.pack_preset(6, delta)
+    (tmp_path / "native").mkdir()
+    jnative.pack_strided(flat[None], t32, dims,
+                         [str(tmp_path / "native" / "m.xz")], 1, m, m,
+                         np.zeros(1, np.int64), 1, preset=word)
+    blobs = {"native": (tmp_path / "native" / "m.xz").read_bytes()}
+    for kind in ("dense", "sparse"):
         out = tmp_path / kind
         out.mkdir()
-        packer = engine.HostPacker(use_native=use_native, xz_delta=delta)
+        packer = engine.HostPacker(xz_delta=delta)
         if kind == "dense":
             packer.pack(str(out), dense, t32)
         else:
             packer.pack_sparse(str(out), sparse, t32)
         (name,) = os.listdir(out)
         blobs[kind] = (out / name).read_bytes()
-    payload = archive.xz_decompress(blobs["dense"])
+    payload = archive.xz_decompress(blobs["native"])
     assert len(payload) == 20 + 8 * kept
-    assert blobs["sparse"] == blobs["dense"]
-    assert blobs["dense"] == liblzma_encode(payload,
-                                            archive.pack_preset(6, delta))
+    assert blobs["sparse"] == blobs["dense"] == blobs["native"]
+    assert blobs["native"] == liblzma_encode(payload, word)

@@ -10,13 +10,15 @@ It keeps the JAX package's module names, so each part has a counterpart:
 - ``runtime``   the device codec engine, the host packer, batching;
 - ``pipeline``  the compress / decompress / estimate modes and the archive
                 check and summary;
-- ``io``, ``native``  plotfile and archive I/O, the native host codec;
+- ``io``        plotfile and archive I/O;
 - ``api``, ``cli``  the entry points.
 
-Host-side code with no backend in it (``io``, ``native``, ``core/rle``,
+Host-side code with no backend in it (``io``, ``core/rle``,
 ``core/metrics``, ``runtime/batching``, ``pipeline/check``) is a copy of
-the JAX package's, unchanged but for its imports: nothing here imports jax
-or ``wavelet_tpu``.  ``runtime/debug.phase_timer`` logs the same lines as
+the JAX package's, changed only where its module docstring says: nothing
+here imports jax or ``wavelet_tpu``.  The host codec is NumPy RLE and xz
+(liblzma through ctypes) on every machine; the JAX package's native C++
+codec has no counterpart here.  ``runtime/debug.phase_timer`` logs the same lines as
 the JAX package's, and is one of the port's spans (``runtime/debug``).
 """
 

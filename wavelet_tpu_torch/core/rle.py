@@ -52,9 +52,9 @@ def rle_decode(runs: np.ndarray, vals: np.ndarray, total: int) -> np.ndarray:
     negative position anywhere) fall back to a scalar loop reproducing the
     reference's exact semantics (decompressor.cpp:14-30): ``idx += run``,
     and a pair only writes *and only advances the extra +1* when ``idx`` is
-    in range — identical to the native backend (wtc_codec.cpp
-    wtc_unpack_strided), so both backends reconstruct the same data from the
-    same corrupt input.  (The lower-bound check is a hardening the reference
+    in range — identical to the C++ codec (native/wtc_codec.cpp
+    wtc_unpack_strided), so both reconstruct the same data from the same
+    corrupt input.  (The lower-bound check is a hardening the reference
     lacks; negative ``idx`` is UB in its case.)
     """
     out = np.zeros(total, dtype=np.float32)

@@ -112,8 +112,9 @@ def deserialize_payload(data: bytes):
 
 def pack_preset(preset: int, delta: int = 0) -> int:
     """Pack (xz preset, delta-filter distance) into the single preset word
-    every encode path (Python and the native ABI) already threads through:
-    low byte = preset, next byte = delta distance (0 = no delta filter).
+    every encode path (the port's, and the JAX package's native ABI)
+    threads through: low byte = preset, next byte = delta distance (0 = no
+    delta filter).
 
     Validated here so a typo can never silently encode a different
     setting (masking alone would turn e.g. xzdelta=-8 into distance 248).
@@ -345,13 +346,13 @@ def _reframe_with_block_sizes(blob: bytes, payload: bytes) -> bytes:
 
 def xz_decompress(blob: bytes) -> bytes:
     """Strict multi-stream xz decode, matching liblzma's
-    LZMA_CONCATENATED semantics (the native backend and the reference's
-    decoder, decompressor.cpp:164-234): NUL stream padding in 4-byte
-    multiples is legal between/after streams, any other trailing bytes
-    are an error.  stdlib ``lzma.decompress`` silently IGNORES trailing
+    LZMA_CONCATENATED semantics (the C++ codec in ``native/`` and the
+    reference's decoder, decompressor.cpp:164-234): NUL stream padding in
+    4-byte multiples is legal between/after streams, any other trailing
+    bytes are an error.  stdlib ``lzma.decompress`` silently IGNORES trailing
     junk after a valid stream ("Leftover data ... ignore it"), which
-    would make the two backends disagree on corrupt members (found by
-    the unpack fuzzer).  Errors are normalized to ValueError — the
+    would make this decoder disagree with the C++ codec on corrupt
+    members (found by the unpack fuzzer).  Errors are normalized to ValueError — the
     family cli.main's clean-error contract catches."""
     out = []
     data = bytes(blob)

@@ -1,8 +1,9 @@
 """AMReX plotfile reader/writer in pure Python/NumPy — no AMReX dependency.
 
-The port's own copy of ``wavelet_tpu/io/plotfile.py``,
-unchanged but for its imports, so that the port imports nothing of
-``wavelet_tpu``.
+The port's own copy of ``wavelet_tpu/io/plotfile.py``, so that the port
+imports nothing of ``wavelet_tpu``: unchanged but for its imports and the
+box transposes, which are NumPy's alone (the JAX package's native C++
+transpose has no counterpart in the port).
 
 The reference uses AMReX itself for this layer (``amrex::VisMF::Read`` in
 ``preprocess.cpp:36`` and ``amrex::WriteMultiLevelPlotfile`` in
@@ -33,7 +34,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from wavelet_tpu_torch import native
 
 __all__ = [
     "PlotfileHeader",
@@ -414,18 +414,11 @@ def read_level(plotfile_dir: str, level: int, comp_idxs) -> LevelBoxes:
                 raise ValueError(
                     f"corrupt plotfile level {lvl_dir}: FAB in {fname} has "
                     f"{ncomp} components, need index {max(comp_idxs)}")
-            # select components, narrow to f32, transpose to (C, X, Y, Z);
-            # the native cache-blocked transpose fuses the narrowing and
-            # the axis reversal (NumPy's strided copy is the plotfile-read
-            # bottleneck otherwise — bench_results/plotfile_io.json)
+            # select components, narrow to f32, transpose to (C, X, Y, Z)
             sel = (data if comp_idxs == list(range(ncomp))
                    else data[comp_idxs])
-            z, y, x = sel.shape[1:]
-            if native.available() and sel.flags.c_contiguous:
-                arr = native.boxes_from_fab(sel, x, y, z)
-            else:
-                arr = np.ascontiguousarray(
-                    sel.astype(np.float32).transpose(0, 3, 2, 1))
+            arr = np.ascontiguousarray(
+                sel.astype(np.float32).transpose(0, 3, 2, 1))
             boxes.append(arr)
             locations.append(tuple(int(v) for v in lo))
             dimensions.append(tuple(arr.shape[1:]))
@@ -442,32 +435,6 @@ def read_level(plotfile_dir: str, level: int, comp_idxs) -> LevelBoxes:
 # ---------------------------------------------------------------------------
 # Writing (byte-identical with amrex::WriteMultiLevelPlotfile output)
 # ---------------------------------------------------------------------------
-
-def _write_prep_threads() -> int:
-    """Thread count for the prep (transpose+widen) stage's NATIVE pool.
-
-    The cache-blocked native transpose is internally threaded across
-    (component, x-tile) work units (wtc_fab_from_boxes -> run_pool), so
-    the prep stage already scales with host cores — 0 means the native
-    default (hardware_concurrency).  ``WAVELET_TPU_WRITE_THREADS`` pins
-    it, which is how bench_plotfile_io measures the scaling curve.
-
-    Measured round 5 (plotfile_io.json): adding OUTER prep workers on top
-    of the threaded transpose was SLOWER on this 4-vCPU rig (128^3: 0.72
-    GB/s 1 outer worker vs 0.33-0.38 at 2-4 — oversubscription + large-
-    allocation churn), so the writer keeps one ordered overlap worker and
-    parallelism lives in the native pool."""
-    env = os.environ.get("WAVELET_TPU_WRITE_THREADS")
-    if env is None or env == "":
-        return 0
-    try:
-        v = int(env)
-    except ValueError:
-        raise ValueError(
-            f"WAVELET_TPU_WRITE_THREADS={env!r} must be an integer "
-            "(0 = native default, hardware_concurrency)") from None
-    return max(0, v)   # "0" means the native default, per the docstring
-
 
 def _write_level_vismf(lvl_dir: str, boxes, locations, dimensions, ncomp,
                        precision: str = "f64"):
@@ -491,19 +458,10 @@ def _write_level_vismf(lvl_dir: str, boxes, locations, dimensions, ncomp,
     def prep(arr):
         # one pass: transpose to the on-disk (C, Z, Y, X) order and widen
         # to the FAB dtype in the same copy (the old astype +
-        # transpose-copy + tobytes chain moved the box three times).  The
-        # native cache-blocked transpose does the pass near memory
-        # bandwidth — NumPy's strided axis-reversal was the writer
-        # bottleneck (bench_results/plotfile_io.json).  min/max on the
-        # f32 source: widening to the FAB dtype is exact, so the header
-        # tables come out byte-identical.
-        if native.available() and arr.flags.c_contiguous \
-                and arr.dtype == np.float32:
-            fab = native.fab_from_boxes(arr, dtype,
-                                        n_threads=_write_prep_threads())
-        else:
-            fab = np.ascontiguousarray(arr.transpose(0, 3, 2, 1),
-                                       dtype=dtype)
+        # transpose-copy + tobytes chain moved the box three times).
+        # min/max on the f32 source: widening to the FAB dtype is exact,
+        # so the header tables come out byte-identical.
+        fab = np.ascontiguousarray(arr.transpose(0, 3, 2, 1), dtype=dtype)
         flat = arr.reshape(ncomp, -1)
         return fab, flat.min(axis=1).astype(dtype), \
             flat.max(axis=1).astype(dtype)
@@ -511,11 +469,7 @@ def _write_level_vismf(lvl_dir: str, boxes, locations, dimensions, ncomp,
     with open(os.path.join(lvl_dir, dname), "wb") as f, \
             cf.ThreadPoolExecutor(1) as pool:
         # 2-stage pipeline: transpose box b+1 behind the file write of box
-        # b.  ONE overlap worker on purpose — the prep stage's parallelism
-        # is INSIDE the native transpose (threaded across (comp, x-tile)
-        # units, see _write_prep_threads); outer prep workers on top of it
-        # measured SLOWER on this rig (round-4 verdict weak #4, resolved
-        # by measurement: plotfile_io.json write_f64_thread_scaling).
+        # b, on one overlap worker.
         nxt = pool.submit(prep, boxes[0]) if boxes else None
         for b, (loc, dims) in enumerate(zip(locations, dimensions)):
             fab, mn, mx = nxt.result()

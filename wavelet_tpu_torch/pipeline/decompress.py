@@ -126,12 +126,11 @@ def _stream_rows(cfg, eng, packer, dims, n_items) -> int:
     """Rows per chunk when the decode of a shape bucket of ``n_items``
     boxes streams into its device stage, or 0 when the bucket takes the
     one-shot path: streaming needs dense transport of unpacked rows (pack
-    factor 1, not giant, no preview) decoded by the Python codec (the
-    native one decodes a batch in one call), and two chunks of members.  A
+    factor 1, not giant, no preview) and two chunks of members.  A
     chunk is one member for each of the packer's workers, or more to reach
     ``_STREAM_MIN_CHUNK_BYTES``, rounded up to the batch's padding
     quantum so that every chunk splits over the mesh as the bucket does."""
-    if (cfg.preview or packer.use_native or eng.giant_ok(dims)
+    if (cfg.preview or eng.giant_ok(dims)
             or batching.cap_pack(eng.pack_factor(dims), n_items,
                                  dims[-1]) > 1
             or eng.transfer_mode(dims, cfg.transfer,

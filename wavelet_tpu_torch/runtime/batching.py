@@ -1,8 +1,9 @@
 """Shape-bucketed batching of ragged AMR boxes.
 
-The port's own copy of ``wavelet_tpu/runtime/batching.py``,
-unchanged but for its imports, so that the port imports nothing of
-``wavelet_tpu``.
+The port's own copy of ``wavelet_tpu/runtime/batching.py``, so that the
+port imports nothing of ``wavelet_tpu``: unchanged but for its imports and
+``ShapeBatch``'s item accessors, which walk the halves layout only (the
+port writes no interleaved batch).
 
 XLA wants static shapes and large batches; AMR gives ragged per-level box
 shapes (the fixture mixes 16x32x64 and 8x4x2 at one level).  The plan here
@@ -15,7 +16,7 @@ to a multiple of the mesh size so the leading axis shards evenly.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import threading
 
@@ -56,49 +57,17 @@ class ShapeBatch:
     n_valid: int
     pack: int = 1
     # coefficient layout: "halves" = each axis deinterleaved into
-    # (low half, high half) — the reference's order; "interleaved" = lows
-    # at even, highs at odd indices (the in-place kernel layout; the host
-    # packer walks kernels/haar_pallas.interleave_perm to recover the
-    # reference byte order).  ``scales`` is the pyramid depth the layout
-    # encodes (the multi-scale interleaved map is non-separable; see
-    # haar_pallas.interleave_coords_multi).  Spatial (non-coefficient)
+    # (low half, high half) — the reference's order, the only layout the
+    # port's kernels write; "interleaved" is the JAX package's in-place
+    # TPU layout, which the engine and the packer refuse.  ``scales`` is
+    # the pyramid depth the layout encodes.  Spatial (non-coefficient)
     # batches are always natural order and keep the defaults.
     layout: str = "halves"
     scales: int = 1
-    # lazily built caches, EXCLUDED from dataclasses.replace (init=False):
-    # both depend on (pack, scales, layout), which the engine routinely
-    # rewrites via replace() — carrying a stale cache across a geometry
-    # change would read coefficients at wrong offsets with no error
-    _map_cache: object = field(default=None, init=False, repr=False,
-                               compare=False)
-    _offsets_cache: object = field(default=None, init=False, repr=False,
-                                   compare=False)
-
-    def _logical_map(self):
-        """Flat logical->physical element offsets within an item region
-        (cached: it is O(X*Y*Z) to build and shared by every item)."""
-        if self._map_cache is None:
-            # the map lives in the JAX package's Pallas module; the port
-            # keeps every coefficient batch in the halves layout
-            raise NotImplementedError(
-                "the interleaved coefficient layout is not ported")
-        return self._map_cache
 
     def item_view(self, i: int) -> np.ndarray:
-        """Item i's (X, Y, Z) array in LOGICAL (reference) order.
-
-        A view into ``data`` for natural layouts; a gathered copy for
-        ``layout == "interleaved"`` coefficient batches."""
-        phys = self._item_phys(i)
-        if self.layout != "interleaved":
-            return phys
-        x, y, z = self.shape
-        off = int(self.item_offsets()[i])
-        flat = self.data.reshape(-1)
-        return flat[off + self._logical_map()].reshape(x, y, z)
-
-    def _item_phys(self, i: int) -> np.ndarray:
-        """Item i's physical (X, Y, Z) region (always a view)."""
+        """Item i's (X, Y, Z) array in LOGICAL (reference) order: a view
+        into ``data``."""
         if self.pack == 1:
             return self.data[i]
         z = self.shape[-1]
@@ -106,29 +75,8 @@ class ShapeBatch:
         return self.data[m, :, :, p * z : (p + 1) * z]
 
     def item_write(self, i: int, logical: np.ndarray) -> None:
-        """Store item i from a LOGICAL-order (X, Y, Z) array (scatters
-        through the interleave map when needed)."""
-        if self.layout != "interleaved":
-            self._item_phys(i)[:] = logical
-            return
-        off = int(self.item_offsets()[i])
-        flat = self.data.reshape(-1)
-        flat[off + self._logical_map()] = logical.reshape(-1)
-
-    def item_offsets(self) -> np.ndarray:
-        """Flat-element offset of each item's first coefficient (for the
-        strided native codec); row geometry = (X*Y rows of Z, stride P*Z).
-        Cached — per-item accessors call this once per item."""
-        if self._offsets_cache is None:
-            x, y, z = self.shape
-            n = len(self.items)
-            idx = np.arange(n, dtype=np.int64)
-            if self.pack == 1:
-                self._offsets_cache = idx * (x * y * z)
-            else:
-                m, p = np.divmod(idx, self.pack)
-                self._offsets_cache = m * (x * y * self.pack * z) + p * z
-        return self._offsets_cache
+        """Store item i from a LOGICAL-order (X, Y, Z) array."""
+        self.item_view(i)[:] = logical
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -171,10 +119,11 @@ class BufferArena:
     timesteps.
 
     A fresh ``np.zeros`` costs one page fault per 4 KiB on first write;
-    measured on the build host that roughly HALVES the native unpack rate
-    (host_codec.json cold vs warm rows).  Decompression regenerates the
-    same shape buckets every timestep, so recycling turns every unpack
-    after the first timestep into a warm-buffer run.
+    measured on the build host that roughly halved the unpack rate of the
+    JAX package's native codec (host_codec.json cold vs warm rows).
+    Decompression regenerates the same shape buckets every timestep, so
+    recycling turns every unpack after the first timestep into a
+    warm-buffer run.
 
     Contract: ``release(arr)`` only after the device step that read the
     buffer has completed (the engine fetches results via ``np.asarray``

@@ -69,7 +69,6 @@ import time
 import numpy as np
 import torch
 
-from wavelet_tpu_torch import native
 from wavelet_tpu_torch.core import haar, rle, threshold
 from wavelet_tpu_torch.core.threshold import resolve_signed_absmax
 from wavelet_tpu_torch.io import archive, bundle
@@ -917,7 +916,7 @@ class CodecEngine:
                 "lane-packed on the halves route at scales=1)")
 
 
-# what each member of an unpack returns beside its output
+# what each member of an unpack returns, summed into the packer's stats
 _UNPACK_KEYS = ("unpack_cpu_seconds", "xz_decoded_bytes",
                 "xz_decode_cpu_seconds")
 
@@ -934,9 +933,8 @@ def _atomic_write(path: str, blob: bytes) -> None:
 class HostPacker:
     """Parallel host-side pack/unpack + file I/O for ``halves`` batches.
 
-    Two backends with identical byte output: the native C++ codec
-    (native/wtc_codec.cpp) on its worker pool, or NumPy RLE + stdlib
-    ``lzma`` on a thread pool when the shared library is unavailable.
+    The member codec is NumPy RLE + xz (``io/archive``: liblzma's buffer
+    encoder through ctypes, or stdlib ``lzma``) on the packer's workers.
     Two archive layouts with identical member bytes: ``files`` (one
     ``.xz`` per (t, lev, comp, box), reference-compatible) and ``bundle``
     (one container per timestep; callers must :meth:`close_bundles`).
@@ -945,12 +943,11 @@ class HostPacker:
     :class:`runtime.packstream.PackStream`): :meth:`submit` and
     :meth:`submit_sparse` queue a batch's members and return a Future of
     its bytes at once, and the packer's workers pack the queued members of
-    every batch, largest first, with no barrier between batches, on
-    either backend (the native one a member a call); :meth:`pack` and
-    :meth:`pack_sparse` submit and wait.  Bundle members are appended in
-    submission order, and :meth:`close_bundles_later` closes a timestep's
-    bundle once the members submitted before it are in, so the bytes do
-    not depend on the order the workers finish in.
+    every batch, largest first, with no barrier between batches;
+    :meth:`pack` and :meth:`pack_sparse` submit and wait.  Bundle members
+    are appended in submission order, and :meth:`close_bundles_later`
+    closes a timestep's bundle once the members submitted before it are
+    in, so the bytes do not depend on the order the workers finish in.
 
     ``stats`` (a dict, by default the packer's own) receives from the
     stream ``pack_seconds`` (the union of the intervals in which a batch
@@ -960,12 +957,11 @@ class HostPacker:
     ``xz_cpu_seconds`` (span ``pack.xz``); on the unpack side
     ``unpack_cpu_seconds``, ``xz_decoded_bytes`` and
     ``xz_decode_cpu_seconds`` (spans ``unpack.member``, ``unpack.xz``).
-    The native backend codes a member on a C++ thread: its batches add
-    ``pack_seconds`` only.
+    The unpack side decodes on :class:`UnpackStream`, the packer's one
+    decode pool.
     """
 
-    def __init__(self, workers: int | None = None,
-                 use_native: bool | None = None, payload: str = "f32",
+    def __init__(self, workers: int | None = None, payload: str = "f32",
                  codec: str = "xz", xz_preset: int = 6,
                  archive_format: str = "files", xz_delta: int = 0,
                  stats: dict | None = None):
@@ -983,22 +979,11 @@ class HostPacker:
         self.archive_format = archive_format
         self._writers = {}          # (dir, t) -> BundleWriter
         self._bundle_sets = {}      # dir -> BundleSet (read side, lazy)
-        if use_native is None:
-            use_native = native.available()
-        self.use_native = use_native and native.available()
         self.stream = PackStream(
             self.workers, self.stats,
             append=(self._append_member if archive_format == "bundle"
                     else None),
             close=self._close_writers)
-
-    def _add_member_stats(self, results, keys) -> list:
-        """Sum the members' ``(out, *counts)`` into ``stats[keys]``;
-        -> the members' ``out``."""
-        for k, key in enumerate(keys, 1):
-            self.stats[key] = (self.stats.get(key, 0)
-                               + sum(r[k] for r in results))
-        return [r[0] for r in results]
 
     def _paths(self, dir_, items):
         return [os.path.join(dir_, archive.payload_filename(
@@ -1050,16 +1035,11 @@ class HostPacker:
         return bs
 
     @staticmethod
-    def _geometry(batch: ShapeBatch):
-        """(rows, row_len, row_stride) of one item inside batch.data."""
+    def _require_halves(batch: ShapeBatch) -> None:
+        """The item views walk halves batches (any pack factor) only."""
         if batch.layout != "halves":
             raise NotImplementedError(
                 "the port's packer walks halves batches only")
-        x, y, z = batch.shape
-        if batch.pack == 1:
-            n = x * y * z
-            return 1, n, n
-        return x * y, z, batch.pack * z
 
     def _encode(self, payload: bytes, path):
         """xz (or ``codec=raw``) one serialized member and, in files mode
@@ -1077,7 +1057,7 @@ class HostPacker:
                 else archive.serialize_payload)
 
     def _member(self, out_dir: str, items, shape, pairs):
-        """``encode(k)`` for the stream on the Python codec: member ``k``'s
+        """``encode(k)`` for the stream: member ``k``'s
         ``pairs(k) -> (kept positions, values)`` RLE-coded, serialized,
         xz'd and, in files mode, written."""
         paths = (None if self.archive_format == "bundle"
@@ -1101,10 +1081,8 @@ class HostPacker:
         ShapeBatch (padding slots ignored; ``subset`` restricts to those
         item indices) and return at once: a Future of the compressed
         bytes (span ``pack.batch``: the hand-over).  Each member is
-        sized by its kept count (span ``pack.size``) and packed whole,
-        on the NumPy + ``lzma`` codec or, one member a call, the native
-        one (whose C++ thread the counters do not see)."""
-        rows, row_len, row_stride = self._geometry(coeff_batch)
+        sized by its kept count (span ``pack.size``) and packed whole."""
+        self._require_halves(coeff_batch)
         sel = (list(range(len(coeff_batch.items))) if subset is None
                else list(subset))
         chosen = [coeff_batch.items[i] for i in sel]
@@ -1115,49 +1093,17 @@ class HostPacker:
                 i = sel[k]
                 n = int(np.count_nonzero(
                     np.abs(coeff_batch.item_view(i)) > t32[i]))
-            return n, ({} if self.use_native
-                       else {"pack_cpu_seconds": s.cpu_seconds})
+            return n, {"pack_cpu_seconds": s.cpu_seconds}
 
-        if self.use_native:
-            encode = self._native_member(out_dir, coeff_batch, t32, sel,
-                                         chosen, rows, row_len, row_stride)
-        else:
-            def pairs(k):
-                i = sel[k]
-                flat = np.ascontiguousarray(
-                    coeff_batch.item_view(i)).reshape(-1)
-                idx = np.flatnonzero(np.abs(flat) > t32[i])
-                return idx, flat[idx]
-            encode = self._member(out_dir, chosen, coeff_batch.shape, pairs)
+        def pairs(k):
+            i = sel[k]
+            flat = np.ascontiguousarray(coeff_batch.item_view(i)).reshape(-1)
+            idx = np.flatnonzero(np.abs(flat) > t32[i])
+            return idx, flat[idx]
+        encode = self._member(out_dir, chosen, coeff_batch.shape, pairs)
         with span("pack.batch", args=(*coeff_batch.shape, len(sel))):
             return self.stream.submit(coeff_batch.data.nbytes, out_dir,
                                       chosen, size, encode)
-
-    def _native_member(self, out_dir, coeff_batch, t32, sel, items, rows,
-                       row_len, row_stride):
-        """``encode(k)`` for the stream on the native codec: one member a
-        call, on one C++ thread."""
-        offsets = coeff_batch.item_offsets()
-        paths = (None if self.archive_format == "bundle"
-                 else self._paths(out_dir, items))
-        kw = dict(payload=self.payload, codec=self.codec,
-                  preset=self.xz_preset)
-
-        def encode(k):
-            i = sel[k]
-            with span("pack.member"):
-                if paths is None:
-                    out = native.encode_strided(
-                        coeff_batch.data, t32[i:i + 1], coeff_batch.shape,
-                        rows, row_len, row_stride, offsets[i:i + 1], 1,
-                        **kw)[0]
-                else:
-                    out = native.pack_strided(
-                        coeff_batch.data, t32[i:i + 1], coeff_batch.shape,
-                        [paths[k]], rows, row_len, row_stride,
-                        offsets[i:i + 1], 1, **kw)
-            return out, {}
-        return encode
 
     def pack(self, out_dir: str, coeff_batch: ShapeBatch,
              t32: np.ndarray, subset=None) -> int:
@@ -1169,7 +1115,7 @@ class HostPacker:
         """Queue the pack of device-sparsified (index, value) pairs — no
         dense coefficient array ever reaches the host — and return at
         once: a Future of the compressed bytes.  Bytes identical to the
-        dense path (same mask, same RLE); always the Python codec."""
+        dense path (same mask, same RLE)."""
         encode = self._member(out_dir, sparse.items, sparse.shape,
                               lambda k: sparse.item_pairs(k, float(t32[k])))
         with span("pack.batch", args=(*sparse.shape, len(sparse.items))):
@@ -1188,54 +1134,21 @@ class HostPacker:
         ``(idx int32 [n_items, cap], vals f32 [n_items, cap])`` where
         padding slots carry distinct positions >= X*Y*Z (dropped by the
         device scatter).  Only kept pairs ever materialize — no dense rows
-        on the host and only ~kept bytes over the host->device link.
-
-        Decoding runs the Python codec path (lzma releases the GIL, so the
-        thread pool still parallelizes) rather than the native dense
-        walks."""
+        on the host and only ~kept bytes over the host->device link."""
         items = batch.items
-        dims = tuple(batch.shape)
-        m = int(np.prod(dims))
-        bundled = self.archive_format == "bundle"
-        bs = self._bundle_set(in_dir) if bundled else None
-        paths = None if bundled else self._paths(in_dir, items)
-        deserialize = (archive.deserialize_payload_q16
-                       if self.payload == "q16"
-                       else archive.deserialize_payload)
+        m = int(np.prod(batch.shape))
+        pairs = [None] * len(items)
 
-        def one(i):
-            with span("unpack.member", cpu=True) as member:
-                if bundled:
-                    it = items[i]
-                    blob = bs.blob(it.t, it.level, it.comp_idx, it.box)
-                else:
-                    with open(paths[i], "rb") as f:
-                        blob = f.read()
-                with span("unpack.xz", cpu=True) as xz:
-                    payload = archive.decode_blob(blob, self.codec)
-                shape, total, runs, vals = deserialize(payload)
-                if tuple(shape) != dims:
-                    raise ValueError(
-                        f"payload shape {tuple(shape)} disagrees with "
-                        f"dimensions.raw {dims}")
-                if int(total) != m:
-                    # the dense path hits this as a reshape failure; reject
-                    # the corrupt header with the same clean-error contract
-                    # instead of silently dropping the out-of-range
-                    # coefficients
-                    raise ValueError(
-                        f"payload total {int(total)} disagrees with "
-                        f"dimensions.raw volume {m}")
-                # shared helper = the single home of the malformed-stream
-                # semantics (reference's skip-increment rule), so sparse and
-                # dense decompress can never drift apart on corrupt payloads
-                pos, v = rle.rle_decode_pairs(runs, vals, total)
-                pos = pos.astype(np.int32)
-            return (pos, v), member.cpu_seconds, len(payload), xz.cpu_seconds
+        def keep(i, total, runs, vals):
+            # shared helper = the single home of the malformed-stream
+            # semantics (reference's skip-increment rule), so sparse and
+            # dense decompress can never drift apart on corrupt payloads
+            pos, v = rle.rle_decode_pairs(runs, vals, total)
+            pairs[i] = (pos.astype(np.int32), v)
 
-        with cf.ThreadPoolExecutor(self.workers) as ex:
-            pairs = self._add_member_stats(
-                list(ex.map(one, range(len(items)))), _UNPACK_KEYS)
+        with self._decode(in_dir, items, batch.shape, [(0, len(items))],
+                          keep) as stream:
+            list(stream)
         cap = max([len(p) for p, _ in pairs] + [1])
         # round the pad capacity up to a power of two, but never past the
         # box volume (a 256 floor on an m=64 box would ship MORE bytes
@@ -1252,30 +1165,11 @@ class HostPacker:
         return idx, vals
 
     def unpack_into(self, in_dir: str, batch: ShapeBatch) -> None:
-        """Read + xz-decode + RLE-scatter every item into ``batch.data``."""
-        if not self.use_native:
-            # the Python codec: one chunk of every row
-            with self.unpack_stream(in_dir, batch,
-                                    [(0, len(batch.items))]) as stream:
-                list(stream)
-            return
-        dims = batch.shape
-        rows, row_len, row_stride = self._geometry(batch)
-        if self.archive_format == "bundle":
-            bs = self._bundle_set(in_dir)
-            shapes = native.unpack_strided_mem(
-                [bs.blob(it.t, it.level, it.comp_idx, it.box)
-                 for it in batch.items], batch.data, rows, row_len,
-                row_stride, batch.item_offsets(), self.workers,
-                payload=self.payload, codec=self.codec)
-        else:
-            shapes = native.unpack_strided(
-                self._paths(in_dir, batch.items), batch.data, rows, row_len,
-                row_stride, batch.item_offsets(), self.workers,
-                payload=self.payload, codec=self.codec)
-        if not np.all(shapes == np.asarray(dims, np.int32)):
-            raise ValueError(
-                f"payload shapes disagree with dimensions.raw {dims}")
+        """Read + xz-decode + RLE-scatter every item into ``batch.data``:
+        :meth:`unpack_stream` with one chunk of every row."""
+        with self.unpack_stream(in_dir, batch,
+                                [(0, len(batch.items))]) as stream:
+            list(stream)
 
     def largest_first(self, in_dir: str, items) -> list:
         """``items`` by their stored member's size, largest first (ties in
@@ -1299,42 +1193,58 @@ class HostPacker:
 
     def unpack_stream(self, in_dir: str, batch: ShapeBatch,
                       bounds) -> "UnpackStream":
-        """The Python codec's unpack of ``batch``: each item read,
-        xz-decoded and RLE-scattered into ``batch.data`` on a pool that
-        hands the rows on a chunk of ``bounds`` at a time (see
-        :class:`UnpackStream`; :meth:`unpack_into` takes one chunk).  A
-        bundle's members are read here, files on the pool."""
-        dims = batch.shape
-        self._geometry(batch)
-        bundled = self.archive_format == "bundle"
-        if bundled:
+        """The unpack of ``batch``: each item read, xz-decoded and
+        RLE-scattered into ``batch.data`` on a pool that hands the rows on
+        a chunk of ``bounds`` at a time (see :class:`UnpackStream`;
+        :meth:`unpack_into` takes one chunk)."""
+        self._require_halves(batch)
+        dims = tuple(batch.shape)
+
+        def scatter(i, total, runs, vals):
+            batch.item_write(i, rle.rle_decode(runs, vals, total)
+                             .reshape(dims))
+        return self._decode(in_dir, batch.items, dims, bounds, scatter)
+
+    def _decode(self, in_dir: str, items, dims, bounds,
+                use) -> "UnpackStream":
+        """Every member of ``items`` read (a bundle's here, files on the
+        pool), xz-decoded, deserialized and checked against ``dims`` (its
+        shape and its total), then handed to ``use(i, total, runs,
+        vals)``, on an :class:`UnpackStream` over ``bounds``."""
+        dims = tuple(dims)
+        m = int(np.prod(dims))
+        if self.archive_format == "bundle":
             bs = self._bundle_set(in_dir)
             blobs = [bs.blob(it.t, it.level, it.comp_idx, it.box)
-                     for it in batch.items]
+                     for it in items]
+            read = blobs.__getitem__
         else:
-            paths = self._paths(in_dir, batch.items)
+            paths = self._paths(in_dir, items)
+
+            def read(i):
+                with open(paths[i], "rb") as f:
+                    return f.read()
         deserialize = (archive.deserialize_payload_q16
                        if self.payload == "q16"
                        else archive.deserialize_payload)
 
         def one(i):
             with span("unpack.member", cpu=True) as member:
-                if bundled:
-                    blob = blobs[i]
-                else:
-                    with open(paths[i], "rb") as f:
-                        blob = f.read()
+                blob = read(i)
                 with span("unpack.xz", cpu=True) as xz:
                     payload = archive.decode_blob(blob, self.codec)
                 shape, total, runs, vals = deserialize(payload)
-                if tuple(shape) != tuple(dims):
+                if tuple(shape) != dims:
                     raise ValueError(
-                        f"payload shape {shape} disagrees with "
+                        f"payload shape {tuple(shape)} disagrees with "
                         f"dimensions.raw {dims}")
-                batch.item_write(i, rle.rle_decode(
-                    runs, vals, total).reshape(dims))
-            return None, member.cpu_seconds, len(payload), xz.cpu_seconds
-        return UnpackStream(self, one, len(batch.items), bounds)
+                if int(total) != m:
+                    raise ValueError(
+                        f"payload total {int(total)} disagrees with "
+                        f"dimensions.raw volume {m}")
+                use(i, total, runs, vals)
+            return member.cpu_seconds, len(payload), xz.cpu_seconds
+        return UnpackStream(self, one, len(items), bounds)
 
 
 def _timed(one, i):
@@ -1394,7 +1304,9 @@ class UnpackStream:
     def close(self) -> None:
         self._pool.shutdown(wait=True, cancel_futures=True)
         results, self._results = self._results, []
-        self._packer._add_member_stats(results, _UNPACK_KEYS)
+        stats = self._packer.stats
+        for k, key in enumerate(_UNPACK_KEYS):
+            stats[key] = stats.get(key, 0) + sum(r[k] for r in results)
 
     def __enter__(self) -> "UnpackStream":
         return self

@@ -2,39 +2,32 @@
 
     python -m wavelet_tpu_torch.scripts.bench_host_codec [--device cuda|cpu]
         [--n-items 64] [--dim 64] [--root DIR] [--tmpfs DIR]
-        [--plotfile-io PATH] [--out bench_results_torch/host_codec.json]
+        [--out bench_results_torch/host_codec.json]
 
 The counterpart of the JAX package's ``scripts/bench_host_codec.py`` on
-the port's ``native`` (native/wtc_codec.cpp), ``io/archive`` and
-``core/rle``.  The end-to-end compress rate is ``min(device_rate,
-host_pack_rate)`` once the two stages overlap (the pipeline's pack
-thread), and the host stage (threshold + RLE + xz encode + file write,
-the reference's hot loop #2, compressor.cpp:260-290) is measured here
-alone:
+the port's ``io/archive``, ``core/rle`` and ``HostPacker``.  The
+end-to-end compress rate is ``min(device_rate, host_pack_rate)`` once the
+two stages overlap (the pipeline's pack stream), and the host stage
+(threshold + RLE + xz encode + file write, the reference's hot loop #2,
+compressor.cpp:260-290) is measured here alone:
 
-- input GB/s per thread count at kept fractions of 1% and 5%
-  (``--n-items`` items of ``--dim``^3, 64 MiB by default), native and
-  Python packers, raw-codec unpack warm and cold, xz preset sensitivity,
-  and the small-file overhead of the file system under ``--root``
-  against the tmpfs under ``--tmpfs`` (default ``/dev/shm`` where it
-  exists);
+- input GB/s of the member codec on one thread at kept fractions of 1%
+  and 5% (``--n-items`` items of ``--dim``^3, 64 MiB by default; 16 of
+  them a fraction) and xz preset sensitivity, on the tmpfs under
+  ``--tmpfs`` (default ``/dev/shm`` where it exists);
 - the device stages in the same run, on the same card:
   ``bench.measure`` at [32, 64^3] gives ``pipeline_device_stage_gbps``
   (the forward kernel the pipelines run) and the sparse scatter stage;
-  the cores this host needs to keep up with that device rate follow;
-- ``archive=bundle`` against per-file members (``HostPacker``), xz with
-  and without the delta filter on coefficients from
+- ``archive=bundle`` against per-file members (``HostPacker``) on the
+  file system under ``--root``, xz with and without the delta filter
+  (``HostPacker`` on every worker) on coefficients from
   ``CodecEngine.compress_batch_raw``, and the pipeline's own overlapped
   device + pack loop (``pipeline.compress._pack_overlapped`` with its
   ``_box_step``) on ``--device``.
 
-With ``--device cpu`` the device fields are null.  Where the native
-codec does not load (``native/build.sh`` found no toolchain), the native
-loops, the delta filter and the cores analysis are left out.  The plotfile write
-rate of the decompress projection comes only from ``--plotfile-io PATH``
-(a ``scripts.bench_plotfile_io`` artifact); without it, it is null and
-the projection leaves it out.  Scratch files go in directories of the
-run's own, made under ``--root`` and ``--tmpfs`` and removed at the end.
+With ``--device cpu`` the device fields are null.  Scratch files go in
+directories of the run's own, made under ``--root`` and ``--tmpfs`` and
+removed at the end.
 """
 
 from __future__ import annotations
@@ -49,15 +42,14 @@ import time
 
 import numpy as np
 
-from wavelet_tpu_torch import bench, native
+from wavelet_tpu_torch import bench
 from wavelet_tpu_torch.core import rle
 from wavelet_tpu_torch.io import archive
 from wavelet_tpu_torch.pipeline import compress as cmod
 from wavelet_tpu_torch.runtime import batching, engine as eng_mod
 from wavelet_tpu_torch.scripts import harness
 
-__all__ = ["make_coeffs", "bench_native_pack", "bench_native_unpack",
-           "bench_python_pack", "bench_preset_sensitivity", "host_rates",
+__all__ = ["make_coeffs", "bench_python_pack", "bench_preset_sensitivity", "host_rates",
            "device_rates", "bench_xz_delta", "bench_bundle_vs_files",
            "bench_overlapped_pipeline", "main"]
 
@@ -79,27 +71,8 @@ def make_coeffs(n_items: int, m: int, kept_frac: float, seed: int = 0):
     return flat, t32
 
 
-def bench_native_pack(flat, t32, dims, threads, out_dir, codec="xz",
-                      preset=6):
-    n, m = flat.shape
-    paths = [os.path.join(out_dir, f"pk-{i}.xz") for i in range(n)]
-    offsets = np.arange(n, dtype=np.int64) * m
-    t0 = time.perf_counter()
-    total = native.pack_strided(flat, t32, dims, paths, 1, m, m, offsets,
-                                n_threads=threads, codec=codec, preset=preset)
-    dt = time.perf_counter() - t0
-    return flat.nbytes / dt / 1e9, total, paths
-
-
-def bench_native_unpack(paths, m, threads):
-    t0 = time.perf_counter()
-    out, _shapes = native.unpack_batch(paths, m, n_threads=threads)
-    dt = time.perf_counter() - t0
-    return out.nbytes / dt / 1e9
-
-
 def bench_python_pack(flat, t32, dims, out_dir):
-    """The fallback path: NumPy RLE + stdlib lzma, single-threaded."""
+    """The member codec (NumPy RLE + xz) on one thread."""
     n, m = flat.shape
     t0 = time.perf_counter()
     total = 0
@@ -139,129 +112,24 @@ def bench_preset_sensitivity(flat, t32, dims):
     return rows
 
 
-
-def native_rates(results: dict, key: str, flat, t32, dims, d: str,
-                 disk: str) -> None:
-    """The native codec's loops at one kept fraction (the JAX script's),
-    added to ``results``: pack and unpack per thread count, raw-codec
-    unpack with warm and cold buffers, the extension codecs on the tmpfs
-    ``d``, and (at 1% kept) the same raw pack on ``disk``."""
-    ncpu = results["cpu_count"]
-    n_items, m = flat.shape
-    thread_counts = sorted({1, 2, ncpu})
-    results["pack"][key] = {}
-    results["unpack"][key] = {}
-    for nt in thread_counts:
-        gbps, out_bytes, paths = bench_native_pack(flat, t32, dims, nt, d)
-        # best of 3 (first run pays page-cache warmup)
-        for _ in range(2):
-            gbps2, _, _ = bench_native_pack(flat, t32, dims, nt, d)
-            gbps = max(gbps, gbps2)
-        results["pack"][key][f"threads={nt}"] = {
-            "input_gbps": round(gbps, 4),
-            "output_bytes": int(out_bytes),
-            "ratio_pct": round(100.0 * out_bytes / flat.nbytes, 3),
-        }
-        ug = bench_native_unpack(paths, m, nt)
-        ug = max(ug, bench_native_unpack(paths, m, nt))
-        results["unpack"][key][f"threads={nt}"] = {"output_gbps": round(ug, 4)}
-    # --- raw-codec unpack, warm vs cold destination buffers ---
-    # xz decode and page-fault costs apart: warm buffers (production with
-    # the BufferArena) vs cold np.empty pages, plus the zero-fill roofline
-    # the stage is bound by.
-    rawpaths = [os.path.join(d, f"r{i}.wtc") for i in range(n_items)]
-    offsets = np.arange(n_items, dtype=np.int64) * m
-    native.pack_strided(flat, t32, dims, rawpaths, 1, m, m, offsets,
-                        codec="raw")
-    results.setdefault("unpack_raw", {})[key] = {}
-    out = np.empty((n_items, m), np.float32)
-    for nt in thread_counts:
-        warm = 0.0
-        for _ in range(4):
-            t0 = time.perf_counter()
-            native.unpack_strided(rawpaths, out, 1, m, m, offsets,
-                                  n_threads=nt, codec="raw")
-            warm = max(warm, out.nbytes / (time.perf_counter() - t0) / 1e9)
-        cold = 0.0
-        for _ in range(3):
-            o2 = np.empty((n_items, m), np.float32)
-            t0 = time.perf_counter()
-            native.unpack_strided(rawpaths, o2, 1, m, m, offsets,
-                                  n_threads=nt, codec="raw")
-            cold = max(cold, o2.nbytes / (time.perf_counter() - t0) / 1e9)
-        results["unpack_raw"][key][f"threads={nt}"] = {
-            "warm_gbps": round(warm, 3), "cold_gbps": round(cold, 3)}
-    if key == "kept=0.01":
-        buf = np.empty(n_items * m, np.float32)
-        best = 0.0
-        for _ in range(3):
-            t0 = time.perf_counter()
-            buf.fill(0)
-            best = max(best, buf.nbytes / (time.perf_counter() - t0) / 1e9)
-        results["unpack_raw"]["fill_roofline_1core_gbps"] = round(best, 3)
-    # extension codecs: raw (no entropy stage) and xz preset 1
-    for codec, preset, label in (("raw", 6, "raw"), ("xz", 1, "xz1")):
-        g1, ob, _ = bench_native_pack(flat, t32, dims, ncpu, d,
-                                      codec=codec, preset=preset)
-        for _ in range(2):
-            g2, _, _ = bench_native_pack(flat, t32, dims, ncpu, d,
-                                         codec=codec, preset=preset)
-            g1 = max(g1, g2)
-        results["pack"][key][f"codec={label},threads={ncpu}"] = {
-            "input_gbps": round(g1, 4),
-            "output_bytes": int(ob),
-            "ratio_pct": round(100.0 * ob / flat.nbytes, 3),
-        }
-    if key == "kept=0.01":
-        # same fastest config on the real filesystem: the delta is pure
-        # small-file overhead (open+write+rename per item), the cost the
-        # bundle archive mode exists to remove
-        with tempfile.TemporaryDirectory(dir=disk) as ddisk:
-            g1, _, _ = bench_native_pack(flat, t32, dims, ncpu, ddisk,
-                                         codec="raw")
-            g2, _, _ = bench_native_pack(flat, t32, dims, ncpu, ddisk,
-                                         codec="raw")
-        results["fs_overhead"] = {
-            "raw_pack_gbps_on_disk": round(max(g1, g2), 4),
-            "raw_pack_gbps_on_tmpfs": results["pack"][key][
-                f"codec=raw,threads={ncpu}"]["input_gbps"],
-            "files": n_items,
-        }
-
-
-def host_rates(n_items: int, dims, shm: str, disk: str) -> dict:
-    """The host codec's rates at kept fractions of 1% and 5%: the native
-    loops (:func:`native_rates`, where the native codec loads), the
-    Python packer and the xz presets, on the tmpfs ``shm`` (the small-file
-    overhead on ``disk``)."""
+def host_rates(n_items: int, dims, shm: str) -> dict:
+    """The member codec's rate at kept fractions of 1% and 5%, and the xz
+    presets, on the tmpfs ``shm``."""
     ncpu = os.cpu_count() or 1
     m = int(np.prod(dims))
     results = {"cpu_count": ncpu, "dims": list(dims), "n_items": n_items,
-               "item_bytes": m * 4, "native": native.available(),
-               "pack": {}, "unpack": {}, "python_pack": {},
+               "item_bytes": m * 4, "python_pack": {},
                "preset_sensitivity": {}}
     for kept in (0.01, 0.05):
         flat, t32 = make_coeffs(n_items, m, kept)
         key = f"kept={kept}"
         with tempfile.TemporaryDirectory(dir=shm) as d:
-            if results["native"]:
-                native_rates(results, key, flat, t32, dims, d, disk)
             pg, _ = bench_python_pack(flat[:16], t32[:16], dims, d)
             results["python_pack"][key] = {"input_gbps_1thread": round(pg, 4)}
         if kept == 0.01:
             results["preset_sensitivity"] = bench_preset_sensitivity(
                 flat[:16], t32[:16], dims)
     return results
-
-
-def _plotfile_write_gbps(path):
-    """The f32-outprec plotfile write rate of a ``bench_plotfile_io``
-    artifact (its slowest case), or None without a path."""
-    if path is None:
-        return None
-    with open(path) as f:
-        d = json.load(f)
-    return min(c["write_f32"]["src_gbps"] for c in d["cases"].values())
 
 
 def device_rates(dev, card) -> dict | None:
@@ -279,60 +147,13 @@ def device_rates(dev, card) -> dict | None:
             "launches": ex["launches"]}
 
 
-def analysis(results: dict, rates, plotfile_write) -> dict:
-    """The cores this host needs against the device rate measured in this
-    run, and the co-located decompress projection (null on the CPU)."""
-    ncpu = results["cpu_count"]
-    dev_rate = rates and rates["pipeline_device_stage_gbps"]
-    if not results["native"]:
-        return {"device_compress_gbps": dev_rate,
-                "device_scatter_stage_gbps": rates and rates[
-                    "sparse_scatter_stage_gbps"],
-                "device_card": rates and rates["card"],
-                "note": "the native codec did not load: no pack rate to "
-                        "set against the device's"}
-    pack1 = results["pack"]["kept=0.01"]["threads=1"]["input_gbps"]
-    packN = results["pack"]["kept=0.01"][f"threads={ncpu}"]["input_gbps"]
-    per_core = packN / ncpu
-    raw_rate = results["pack"]["kept=0.01"][
-        f"codec=raw,threads={ncpu}"]["input_gbps"]
-    raw_per_core = raw_rate / ncpu
-    stages = [results["unpack_raw"]["kept=0.01"][f"threads={ncpu}"][
-        "warm_gbps"]] + [v for v in (plotfile_write,) if v is not None]
-    return {
-        "device_compress_gbps": dev_rate,
-        "device_scatter_stage_gbps": rates and rates[
-            "sparse_scatter_stage_gbps"],
-        "device_card": rates and rates["card"],
-        "pack_gbps_per_core_kept1pct": round(per_core, 4),
-        "cores_to_match_device_rate": (round(dev_rate / per_core, 1)
-                                       if rates else None),
-        "cores_for_10gbps_north_star": round(10.0 / per_core, 1),
-        "raw_codec_gbps_per_core": round(raw_per_core, 4),
-        "raw_codec_cores_for_10gbps": round(10.0 / raw_per_core, 1),
-        "e2e_gbps_with_this_host": (round(min(dev_rate, packN), 4)
-                                    if rates else None),
-        "plotfile_write_f32_gbps": plotfile_write,
-        "decompress_colocated_projection_gbps": (round(min(
-            rates["sparse_scatter_stage_gbps"], *stages), 3)
-            if rates else None),
-        "decompress_note": (
-            "decompress e2e = min(device scatter stage, raw unpack [warm "
-            "buffers, as the arena keeps them], plotfile write, link); the "
-            "scatter stage is bench.measure's on this run's card, the "
-            "plotfile write comes from --plotfile-io (left out of the min "
-            "without it), and the link is not in the projection"),
-        "note": (
-            "end-to-end compress = min(device, host pack) once overlapped; "
-            "pack scales ~linearly in cores (independent items, no shared "
-            "state).  cores_to_match_device_rate divides the device stage "
-            "measured in this run (bench.measure's "
-            "pipeline_device_stage_gbps on device_card) by this host's xz "
-            "pack rate per core; the raw codec fields give the same for "
-            "codec=raw.  The reference-compatible xz preset 6 is "
-            "LZMA-bound: entropy coding, not the scan, is its cost."),
-        "pack1_gbps": pack1,
-    }
+def analysis(rates) -> dict:
+    """The device rates measured in this run (null on the CPU)."""
+    return {"device_compress_gbps": rates and rates[
+                "pipeline_device_stage_gbps"],
+            "device_scatter_stage_gbps": rates and rates[
+                "sparse_scatter_stage_gbps"],
+            "device_card": rates and rates["card"]}
 
 
 def bench_xz_delta(device="cuda", n=8, d=64, root=None):
@@ -348,16 +169,21 @@ def bench_xz_delta(device="cuda", n=8, d=64, root=None):
     flat, t32 = eng.compress_batch_raw(boxes, 0.9)
     m = flat.shape[1]
     rand_flat, rand_t32 = make_coeffs(n, m, 0.05, seed=9)
+    items = [batching.WorkItem(t=0, level=0, comp_idx=0, box=b)
+             for b in range(n)]
     out = {}
     for label, (fl, t3) in (("smooth", (flat, t32)),
                             ("random", (rand_flat, rand_t32))):
+        batch = batching.ShapeBatch(shape=(d, d, d),
+                                    data=fl.reshape(n, d, d, d),
+                                    items=items, n_valid=n)
         row = {}
         for dname, delta in (("xz6", 0), ("xz6_delta8", 8)):
-            preset = archive.pack_preset(6, delta)
             with tempfile.TemporaryDirectory(dir=root) as dd:
-                g, ob, _ = bench_native_pack(
-                    fl.reshape(n, -1), t3, (d, d, d),
-                    os.cpu_count(), dd, codec="xz", preset=preset)
+                packer = eng_mod.HostPacker(xz_delta=delta)
+                t0 = time.perf_counter()
+                ob = packer.pack(dd, batch, t3)
+                g = fl.nbytes / (time.perf_counter() - t0) / 1e9
                 row[dname] = {"input_gbps": round(g, 4),
                               "output_bytes": int(ob)}
         row["delta_size_ratio"] = round(
@@ -453,7 +279,7 @@ def bench_overlapped_pipeline(device="cuda", n=48, d=64, root=None):
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m wavelet_tpu_torch.scripts.bench_host_codec",
-        description="Host pack/unpack rates of wavelet_tpu_torch beside "
+        description="Host pack rates of wavelet_tpu_torch beside "
                     "the device rates of the same card.")
     ap.add_argument("--device", default="cuda", help="cuda (default) | cpu")
     ap.add_argument("--n-items", type=int, default=64,
@@ -467,9 +293,6 @@ def parse_args(argv=None):
     ap.add_argument("--tmpfs", default=None,
                     help="the tmpfs of the codec-rate loops (default: "
                          "/dev/shm where it exists, else --root)")
-    ap.add_argument("--plotfile-io", default=None, metavar="PATH",
-                    help="a scripts.bench_plotfile_io artifact whose f32 "
-                         "write rate joins the decompress projection")
     ap.add_argument("--out", default=OUT)
     return ap.parse_args(argv)
 
@@ -481,19 +304,16 @@ def main(argv=None) -> int:
     dims = (a.dim,) * 3
     with harness.private_dir(a.root, "wtc_host_codec_") as disk, \
             harness.private_dir(tmpfs, "wtc_host_codec_") as shm:
-        results = host_rates(a.n_items, dims, shm, disk)
-        rates = device_rates(dev, card)
+        results = host_rates(a.n_items, dims, shm)
         results["card"] = card
         results["device"] = dev.type
-        results["analysis"] = analysis(results, rates,
-                                       _plotfile_write_gbps(a.plotfile_io))
+        results["analysis"] = analysis(device_rates(dev, card))
         results["bundle_vs_files"] = bench_bundle_vs_files(
             a.n_items * 32, root=disk)
         results["pipeline_e2e"] = bench_overlapped_pipeline(
             str(dev), max(1, a.n_items * 3 // 4), a.dim, root=disk)
-        results["xz_delta"] = (bench_xz_delta(
+        results["xz_delta"] = bench_xz_delta(
             str(dev), max(1, a.n_items // 8), a.dim, root=shm)
-            if results["native"] else None)
     harness.write_json(a.out, results, indent=1)
     print(json.dumps(results["analysis"]))
     print(json.dumps(results["pipeline_e2e"]), flush=True)

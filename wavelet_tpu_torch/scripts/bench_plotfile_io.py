@@ -5,12 +5,9 @@
         [--out bench_results_torch/plotfile_io.json]
 
 The counterpart of the JAX package's ``scripts/bench_plotfile_io.py``, on
-the port's ``io/plotfile`` and ``native``: the writer at f64 and f32
-outprec and the reader, at 64 boxes of 64^3 and 16 of 128^3 (two
-components; ``--n-scale F`` multiplies both counts, at least one box),
-the native transpose+widen at 1/2/4 threads, and the whole writer with
-its prep pool pinned to 1/2/4 threads (``WAVELET_TPU_WRITE_THREADS``, set
-and restored around each write).  The work is host-only: ``--device``
+the port's ``io/plotfile``: the writer at f64 and f32 outprec and the
+reader, at 64 boxes of 64^3 and 16 of 128^3 (two components;
+``--n-scale F`` multiplies both counts, at least one box).  The work is host-only: ``--device``
 only names the card in the JSON (and ``cuda``, the default, needs one).
 Files go in a directory of the run's own made under ``--root`` (default:
 the temporary directory) and removed at the end.  Reference anchors:
@@ -25,12 +22,10 @@ import time
 
 import numpy as np
 
-from wavelet_tpu_torch import native
 from wavelet_tpu_torch.io import plotfile
 from wavelet_tpu_torch.scripts import harness
 
-__all__ = ["synth_level", "bench_write", "bench_prep_scaling", "bench_read",
-           "main"]
+__all__ = ["synth_level", "bench_write", "bench_read", "main"]
 
 OUT = os.path.join("bench_results_torch", "plotfile_io.json")
 CASES = ((64, 64), (128, 16))      # (box edge, boxes)
@@ -49,27 +44,11 @@ def synth_level(n_boxes, dim, ncomp, seed):
     return boxes, locs, dims
 
 
-def bench_write(d, boxes, locs, dims, ncomp, precision, reps=3,
-                threads=None):
-    """``threads`` pins the writer's prep-worker count (None = default);
-    the thread-scaling sweep is what the decompress co-located projection
-    rests on (round-4 verdict weak #4: one prep worker's rate was silently
-    assumed to scale)."""
-    if threads is not None:
-        os.environ["WAVELET_TPU_WRITE_THREADS"] = str(threads)
-    try:
-        return _bench_write(d, boxes, locs, dims, ncomp, precision, reps,
-                            tag=f"_t{threads}" if threads else "")
-    finally:
-        if threads is not None:
-            os.environ.pop("WAVELET_TPU_WRITE_THREADS", None)
-
-
-def _bench_write(d, boxes, locs, dims, ncomp, precision, reps, tag=""):
+def bench_write(d, boxes, locs, dims, ncomp, precision, reps=3):
     src_bytes = sum(b.nbytes for b in boxes)
     best = None
     for r in range(reps):
-        out = os.path.join(d, f"plt_{precision}{tag}_{r}")
+        out = os.path.join(d, f"plt_{precision}_{r}")
         t0 = time.perf_counter()
         side = int(np.ceil(len(boxes) ** (1 / 3)))
         dim = dims[0][0]
@@ -87,26 +66,6 @@ def _bench_write(d, boxes, locs, dims, ncomp, precision, reps, tag=""):
     return {"src_gbps": round(src_bytes / best / 1e9, 3),
             "disk_gbps": round(disk / best / 1e9, 3),
             "src_bytes": src_bytes, "disk_bytes": disk}, out
-
-
-def bench_prep_scaling(boxes, reps=7):
-    """Median GB/s (of source f32 bytes) of the native transpose+widen at
-    1/2/4 threads — the prep stage isolated from tmpfs write noise."""
-    if not native.available():
-        return {"unavailable": True}
-    nbytes = sum(b.nbytes for b in boxes)
-    out = {}
-    for nt in (1, 2, 4):
-        rates = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            for b in boxes:
-                native.fab_from_boxes(b, np.float64, n_threads=nt)
-            rates.append(nbytes / 1e9 / (time.perf_counter() - t0))
-        out[f"threads={nt}"] = {"median": round(float(np.median(rates)), 3),
-                                "min": round(min(rates), 3),
-                                "max": round(max(rates), 3)}
-    return out
 
 
 def bench_read(plt_dir, ncomp, src_bytes, reps=3):
@@ -152,16 +111,6 @@ def main(argv=None) -> int:
                 case[f"write_{precision}"] = w
                 case[f"read_{precision}"] = bench_read(plt_dir, ncomp,
                                                        w["src_bytes"])
-            # the native transpose+widen the writer's prep calls, alone
-            case["prep_transpose_thread_scaling_src_gbps"] = \
-                bench_prep_scaling(boxes)
-            # the whole writer with its prep pool pinned
-            scaling = {}
-            for threads in (1, 2, 4):
-                w, _ = bench_write(d, boxes, locs, dims, ncomp, "f64",
-                                   threads=threads)
-                scaling[f"threads={threads}"] = w["src_gbps"]
-            case["write_f64_thread_scaling_src_gbps"] = scaling
             out["cases"][f"{dim}^3_x{n_boxes}"] = case
             print(f"{dim}^3 x {n_boxes}:", json.dumps(case), flush=True)
     harness.write_json(a.out, out)

@@ -6,14 +6,14 @@
 
 The counterpart of the JAX package's ``scripts/fuzz_campaign.py``, with
 its mutations and campaigns (the same seed gives the same tally, surface
-by surface), on the port's ``io``, ``native`` and ``core/rle``.  The
-clean-error contract: only ValueError/OSError/KeyError/EOFError may
-escape a reader, and the two unpack backends (Python and native) must
-agree, over
+by surface, as the JAX script with its native codec off), on the port's
+``io`` and ``core/rle``.  The clean-error contract: only
+ValueError/OSError/KeyError/EOFError may escape a reader, over
 
   - plotfile Header / Cell_H / FAB payload bytes,
-  - archive payload members (xz + raw, f32 + q16), python AND native
-    backends, acceptance compared,
+  - archive payload members (xz + raw, f32 + q16), on the port's one
+    member codec (``backend_disagreements`` keeps the JAX script's
+    schema, and is 0: the port has no second backend to compare),
   - the five sidecars of an archive that ``compress_run`` writes on
     ``--device``,
   - .wtb bundle containers.
@@ -32,7 +32,6 @@ import time
 
 import numpy as np
 
-from wavelet_tpu_torch import native
 from wavelet_tpu_torch.core import rle
 from wavelet_tpu_torch.io import archive, bundle as bundle_mod
 from wavelet_tpu_torch.io import plotfile as pf
@@ -103,55 +102,38 @@ def campaign_plotfile(trials, rng, tally, root=None):
 
 
 def campaign_members(trials, rng, tally, root=None):
+    """Members decode in memory: ``root`` is the campaigns' common
+    argument, and no file is written here."""
     dims, m = (8, 8, 8), 512
-    use_native = native.available()
-    with tempfile.TemporaryDirectory(dir=root) as tmp:
-        for codec in ("xz", "raw"):
-            for fmt in ("f32", "q16"):
-                flat = np.zeros(m, np.float32)
-                idx = rng.choice(m, 40, replace=False)
-                flat[idx] = rng.standard_normal(40).astype(np.float32) * 10
-                runs, vals = rle.rle_encode_mask(flat != 0, flat)
-                ser = (archive.serialize_payload_q16 if fmt == "q16"
-                       else archive.serialize_payload)
-                good = archive.encode_blob(ser(dims, runs, vals), codec)
-                key = f"member:{codec}/{fmt}"
-                tally[key] = {"trials": 0, "survived": 0, "rejected": 0,
-                              "backend_disagreements": 0}
-                for t in range(trials):
-                    blob = mutate(good, rng)
-                    tally[key]["trials"] += 1
-                    try:
-                        payload = archive.decode_blob(blob, codec)
-                        de = (archive.deserialize_payload_q16 if fmt == "q16"
-                              else archive.deserialize_payload)
-                        sh, total, rr, vv = de(payload)
-                        py = (rle.rle_decode(rr, vv, int(total))
-                              if int(total) == m and tuple(sh) == dims
-                              else None)
-                    except CLEAN:
-                        py = None
-                    if py is None:
-                        tally[key]["rejected"] += 1
-                    else:
-                        tally[key]["survived"] += 1
-                    if use_native:
-                        p = os.path.join(tmp, "m.bin")
-                        with open(p, "wb") as f:
-                            f.write(blob)
-                        dest = np.zeros(m, np.float32)
-                        try:
-                            native.unpack_strided(
-                                [p], dest, 1, m, m,
-                                np.zeros(1, np.int64), n_threads=1,
-                                payload=fmt, codec=codec)
-                            nat = dest
-                        except CLEAN:
-                            nat = None
-                        if (nat is None) != (py is None):
-                            tally[key]["backend_disagreements"] += 1
-                        elif nat is not None and not np.array_equal(nat, py):
-                            tally[key]["backend_disagreements"] += 1
+    for codec in ("xz", "raw"):
+        for fmt in ("f32", "q16"):
+            flat = np.zeros(m, np.float32)
+            idx = rng.choice(m, 40, replace=False)
+            flat[idx] = rng.standard_normal(40).astype(np.float32) * 10
+            runs, vals = rle.rle_encode_mask(flat != 0, flat)
+            ser = (archive.serialize_payload_q16 if fmt == "q16"
+                   else archive.serialize_payload)
+            good = archive.encode_blob(ser(dims, runs, vals), codec)
+            key = f"member:{codec}/{fmt}"
+            tally[key] = {"trials": 0, "survived": 0, "rejected": 0,
+                          "backend_disagreements": 0}
+            for t in range(trials):
+                blob = mutate(good, rng)
+                tally[key]["trials"] += 1
+                try:
+                    payload = archive.decode_blob(blob, codec)
+                    de = (archive.deserialize_payload_q16 if fmt == "q16"
+                          else archive.deserialize_payload)
+                    sh, total, rr, vv = de(payload)
+                    py = (rle.rle_decode(rr, vv, int(total))
+                          if int(total) == m and tuple(sh) == dims
+                          else None)
+                except CLEAN:
+                    py = None
+                if py is None:
+                    tally[key]["rejected"] += 1
+                else:
+                    tally[key]["survived"] += 1
 
 
 def campaign_sidecars(trials, rng, tally, root=None, device="cuda"):
@@ -260,7 +242,6 @@ def main(argv=None) -> int:
            "trials_per_surface": args.trials_per,
            "total_mutations": total,
            "seconds": round(time.time() - t0, 3),
-           "native": native.available(),
            "escaped_exceptions": 0,     # any escape aborts the campaign
            "backend_disagreements": sum(
                v.get("backend_disagreements", 0) for v in tally.values()),
