@@ -36,6 +36,14 @@ Phases (any failure exits non-zero before the last line):
    and not a multiple of 4 (the scalar loads); 70,000 rows of 64 and of
    8195 elements; and the main path's [160, 262144] coefficient rows at
    the dataset's kept fraction.
+   The xz decode kernel (``xzdec``, :func:`phase_xzdec`): small members
+   (the header alone, a few pairs, stored chunks, several LZMA2 chunks,
+   and the declines: a flipped CRC64, a negative run, a position past the
+   box, another shape), then one bucket of 48 members of the dataset's
+   64^3 boxes at keep=0.999 in one launch, each row held to stdlib
+   ``lzma``'s bytes through the host reader and to the plain version (a
+   process pool runs it); its time, its MB/s a stream and its bound, the
+   longest member's serial chain of bit decodes.
    The lane-packed kernels (``packed_forward``, ``packed_inverse``,
    ``packed_forward_hist``) likewise, bitwise with histograms exactly:
    [80, 64, 64, 128] (P = 2, the dataset's 64^3 boxes), [*, 32, 64, 128]
@@ -57,10 +65,18 @@ Phases (any failure exits non-zero before the last line):
    each path's kernels must have been launched in its run (the counts are
    set to 0 just before and read just after), and the output must be
    finite and close to the input.  (d)'s archive and plotfiles must also
-   be (b)'s, with fewer bytes over the link both ways; (e)'s payloads and
+   be (b)'s, with fewer bytes over the link both ways (on -d, fewer than
+   (b)'s rows: where (b)'s -d decoded members on the card, those shipped
+   their xz bytes instead); (e)'s payloads and
    plotfiles must be (a)'s, with the packed kernels launched on every
    bucket and the unpacked ones never; and (c)'s archive decompressed with
-   ``transfer=sparse`` must give (c)'s plotfiles.  (f), ``-c`` on the first
+   ``transfer=sparse`` must give (c)'s plotfiles, with fewer link bytes
+   than (c)'s rows.  No -d may leave a member the card declined
+   (``card_declined_members`` 0: the buffer encoder wrote them all).
+   (a)'s archive decompressed again with the card's share pinned (half of
+   each streamed bucket's members, the smallest, whatever the rates say)
+   must give (a)'s plotfiles, through one ``xzdec`` launch a streamed
+   bucket, every pinned member decoded on the card.  (f), ``-c`` on the first
    timestep under ``WAVELET_TPU_LAYOUT=halves``: ``thresholdmode=global
    keepfraction=0.02 transfer=sparse`` must write the default layout's
    archive through ``packed_forward_hist``, and ``keep=0.999
@@ -238,6 +254,8 @@ KERNELS = {
     "packed_forward_hist": ("wavelet_tpu/kernels/haar_pallas.py:242 (K3, "
                             "the packed global pass with the histogram)",
                             "wavelet_tpu_torch/csrc/packed.cu"),
+    "xzdec": ("none: added to decode regen's smaller xz members beside the "
+              "host's pool", "wavelet_tpu_torch/csrc/xzdec.cu"),
 }
 # (h): (archive, preview depth, extra -d keys, the only kernels the
 # preview may launch).  preview=2 regenerates level 0 alone (maxlevel=0):
@@ -643,6 +661,244 @@ def phase_compact_kernels(cases) -> dict:
     return {"compact": err}
 
 
+XZ_BUCKET = 48             # the regen cell's bucket: 48 members of 64^3
+XZ_CHAIN_CYCLES = 24       # dependent cycles of one bit decode (see below)
+SM_CLOCK_HZ = 1.98e9       # H100 SXM's highest SM clock, data sheet
+
+
+def _xz_member(dims, runs, vals, preset=6):
+    """-> (the payload, its xz member) for ``(run, value)`` pairs."""
+    from wavelet_tpu_torch.io import archive
+
+    payload = archive.serialize_payload(dims, runs, vals)
+    return payload, archive.xz_compress(payload, preset)
+
+
+def _xz_rows_expected(payloads, dims):
+    """Each payload's row as the host reader writes it
+    (``rle.rle_decode``), or None where its header disagrees with
+    ``dims``."""
+    import numpy as np
+
+    from wavelet_tpu_torch.core import rle
+    from wavelet_tpu_torch.io import archive
+
+    rows = []
+    for p in payloads:
+        shape, total, runs, vals = archive.deserialize_payload(p)
+        ok = tuple(shape) == tuple(dims) and total == np.prod(dims)
+        rows.append(rle.rle_decode(runs, vals, total).reshape(dims)
+                    if ok else None)
+    return rows
+
+
+def _xz_plain_member(blob, dims):
+    """The plain version's status and row for one member (a process pool
+    runs these: the plain decoder is Python)."""
+    import torch
+
+    from wavelet_tpu_torch.runtime import carddecode
+
+    card = carddecode.CardDecode(torch.device("cpu"), dims, [blob])
+    card.finish()
+    return int(card.status[0]), card.rows[0].numpy().copy()
+
+
+def _xz_launch(device, dims, blobs):
+    """The kernel on ``blobs`` (one launch): -> (status, rows on the host,
+    ticks, the payload sizes)."""
+    from wavelet_tpu_torch.runtime import carddecode
+
+    card = carddecode.CardDecode(device, dims, blobs)
+    card.close()
+    ticks = card._ticks.cpu().numpy()
+    card.finish()
+    return card.status, card.rows.cpu().numpy(), ticks, card.sizes
+
+
+def _xz_check(name, device, dims, blobs, payloads, want_status,
+              plain=True) -> None:
+    """The kernel against stdlib ``lzma``'s bytes (through the host
+    reader's row) and, where ``plain``, against its plain version: the same
+    status, the same row bits."""
+    import numpy as np
+
+    status, rows, _, _ = _xz_launch(device, dims, blobs)
+    if list(status) != list(want_status):
+        raise AssertionError(f"xzdec {name}: status {list(status)}, "
+                             f"expected {list(want_status)}")
+    for j, want in enumerate(_xz_rows_expected(payloads, dims)):
+        if status[j] == 0 and not np.array_equal(rows[j].view(np.int32),
+                                                 want.view(np.int32)):
+            raise AssertionError(f"xzdec {name}: member {j}'s row differs "
+                                 "from stdlib lzma's")
+        if status[j] != 0 and np.any(rows[j]):
+            raise AssertionError(f"xzdec {name}: declined member {j} wrote "
+                                 "its row")
+    if plain:
+        for j, blob in enumerate(blobs):
+            ps, prow = _xz_plain_member(blob, dims)
+            if ps != status[j] or not np.array_equal(
+                    prow.view(np.int32), rows[j].view(np.int32)):
+                raise AssertionError(f"xzdec {name}: member {j} differs from "
+                                     "the plain version")
+
+
+def _xz_edge_cases(device) -> int:
+    """Small members: the header alone, a few pairs, the stored-chunk
+    layout (an incompressible payload over 64 KiB), several LZMA2 chunks
+    (a periodic payload over 2 MiB), and the declines: a flipped CRC64, a
+    negative run, a position past the box, another shape.  -> cases."""
+    import lzma
+
+    import numpy as np
+
+    from wavelet_tpu_torch.io import archive
+
+    rng = np.random.default_rng(21)
+    n = 0
+    d16 = (16, 16, 16)
+    cases = []
+    cases.append(_xz_member(d16, np.zeros(0, np.int32),
+                            np.zeros(0, np.float32)) + (0,))
+    cases.append(_xz_member(d16, np.array([0, 5, 100], np.int32),
+                            np.array([1.5, -2.0, np.nan], np.float32)) + (0,))
+    m16 = 16 ** 3
+    # random bits: stored chunks; status 5 (negative runs) comes only
+    # after the CRC64 has held
+    noise = rng.integers(0, 2**32, (12000, 2), dtype=np.uint32)
+    cases.append(_xz_member(d16, noise[:, 0].view(np.int32),
+                            noise[:, 1].view(np.float32)) + (5,))
+    idx = np.sort(rng.choice(m16, 1500, replace=False))
+    cases.append(_xz_member(
+        d16, (np.diff(idx, prepend=-1) - 1).astype(np.int32),
+        np.cumsum(rng.standard_normal(1500)).astype(np.float32)) + (0,))
+    p, b = _xz_member(d16, np.array([3, -1, 2], np.int32),
+                      np.ones(3, np.float32))
+    cases.append((p, b, 5))                       # a negative run
+    p, b = _xz_member(d16, np.array([m16 - 2, 5], np.int32),
+                      np.ones(2, np.float32))
+    cases.append((p, b, 5))                       # past the box
+    p, b = _xz_member((16, 16, 8), np.array([1], np.int32),
+                      np.ones(1, np.float32))
+    cases.append((p, b, 4))                       # another shape
+    p, b = cases[3][:2]
+    lay = archive.xz_single_block(b)
+    bad = bytearray(b)
+    bad[lay[0] + lay[1] + (-lay[1] % 4)] ^= 0x40  # in the CRC64
+    cases.append((p, bytes(bad), 3))
+    payloads, blobs, want = zip(*cases)
+    for blob, payload, w in zip(blobs, payloads, want):
+        if w != 3 and lzma.decompress(blob) != payload:
+            raise AssertionError("xzdec: a test member does not round-trip")
+    # stored chunks: the payload above 64 KiB of random bits
+    if b"\x01" != blobs[2][12 + (blobs[2][12] + 1) * 4:][:1]:
+        raise AssertionError("xzdec: the incompressible member is not "
+                             "stored chunks")
+    _xz_check("edge cases 16^3", device, d16, blobs, payloads, want)
+    n += len(blobs)
+    dims = (64, 64, 65)
+    m = 64 * 64 * 65
+    vals = np.tile(np.cumsum(rng.standard_normal(997)).astype(np.float32),
+                   m // 997 + 1)[:m]
+    p, b = _xz_member(dims, np.zeros(m, np.int32), vals)
+    _xz_check("several LZMA2 chunks", device, dims, [b], [p], [0],
+              plain=False)
+    return n + 1
+
+
+def phase_xzdec(device, boxes) -> dict:
+    """The xz decode kernel (``xzdec``): the edge cases of
+    :func:`_xz_edge_cases`, then one bucket of :data:`XZ_BUCKET` members
+    of 64^3 (``boxes``' first, at keep=0.999, packed as the main path packs
+    them) in one launch, held to stdlib ``lzma``'s bytes and, in a process
+    pool, to the plain version; then timed (CUDA events, median of 5
+    launches) with each member's own time from its block.  The bound is
+    the longest member's serial chain: its bit decodes (counted by the
+    plain decoder) at :data:`XZ_CHAIN_CYCLES` dependent cycles each
+    (shift, multiply, compare, select, and the normalising compare and
+    select, ~4 cycles each) at :data:`SM_CLOCK_HZ`."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from wavelet_tpu_torch.core import rle, threshold
+    from wavelet_tpu_torch.io import archive
+    from wavelet_tpu_torch.kernels import haar_cuda, xzdec_cuda
+    from wavelet_tpu_torch.runtime import engine
+
+    n_edge = _xz_edge_cases(device)
+    x = torch.from_numpy(np.ascontiguousarray(boxes[:XZ_BUCKET])).to(device)
+    c, mx, mn = haar_cuda.fused_forward(x)
+    flat = c.reshape(c.shape[0], -1).cpu().numpy()
+    signed = engine.resolve_signed_absmax(
+        mx.cpu().numpy(), mn.cpu().numpy(), row_getter=flat.__getitem__)
+    t32 = threshold.exact_threshold32(signed, KEEP)
+    dims = tuple(boxes.shape[1:])
+
+    def member(i):
+        idx = np.flatnonzero(np.abs(flat[i]) > t32[i])
+        return _xz_member(dims, rle.rle_encode_pairs(idx), flat[i][idx])
+
+    with cf.ThreadPoolExecutor(os.cpu_count()) as pool:
+        payloads, blobs = zip(*pool.map(member, range(len(flat))))
+    # largest first, as a bucket's rows are
+    order = sorted(range(len(blobs)), key=lambda i: -len(blobs[i]))
+    payloads = [payloads[i] for i in order]
+    blobs = [blobs[i] for i in order]
+    _xz_check(f"bucket of {len(blobs)} x 64^3", device, dims, blobs,
+              payloads, [0] * len(blobs), plain=False)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with cf.ProcessPoolExecutor(os.cpu_count(), mp_context=ctx) as pool:
+        plain = list(pool.map(_xz_plain_member, blobs,
+                              [dims] * len(blobs)))
+    plain_wall = time.perf_counter() - t0
+    status, rows, _, _ = _xz_launch(device, dims, blobs)
+    for j, (ps, prow) in enumerate(plain):
+        if ps != status[j] or not np.array_equal(prow.view(np.int32),
+                                                 rows[j].view(np.int32)):
+            raise AssertionError(f"xzdec bucket: member {j} differs from "
+                                 "the plain version")
+    # the plain version's own time, one thread, on the largest member
+    lay = archive.xz_single_block(blobs[0])
+    t0 = time.perf_counter()
+    _, _, bits = xzdec_cuda.lzma2_decode_plain(
+        blobs[0][lay[0]:lay[0] + lay[1]], lay[2])
+    plain_largest_s = time.perf_counter() - t0
+    launches_ms, stream_rates, member_ms = [], [], []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        st, _, ticks, sizes = _xz_launch(device, dims, blobs)
+        b.record()
+        torch.cuda.synchronize()
+        launches_ms.append(a.elapsed_time(b))
+        dt = (ticks[:, 1] - ticks[:, 0]) / 1e9
+        stream_rates.append(sum(sizes) / dt.sum() / 1e6)
+        member_ms.append(float(dt.max()) * 1e3)
+    unc = [archive.xz_single_block(b)[2] for b in blobs]
+    bound_ms = bits * XZ_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    ms = statistics.median(launches_ms)
+    return {"edge_members": n_edge, "members": len(blobs),
+            "payload_bytes": sum(unc), "xz_bytes": sum(map(len, blobs)),
+            "largest_payload_bytes": unc[0], "ms": ms,
+            "launches_ms": launches_ms,
+            "longest_member_ms": statistics.median(member_ms),
+            "mb_per_stream_s": statistics.median(stream_rates),
+            "plain_ms": plain_largest_s * 1e3,
+            "plain_pool_wall_s": plain_wall,
+            "largest_member_bits": bits, "bound_ms": bound_ms,
+            "bound_by": (f"serial chain: {bits} bit decodes of the largest "
+                         f"member x {XZ_CHAIN_CYCLES} cycles at "
+                         f"{SM_CLOCK_HZ / 1e9:.2f} GHz"),
+            "share": bound_ms / ms, "library_ms": None}
+
+
 def _packed_inputs(device):
     """(name, packed tensor, P) cases for the lane-packed kernels, from
     numpy seeds: boxes of the shape packed P to a row."""
@@ -818,9 +1074,10 @@ def _tree(root):
 
 def _kernel_modules():
     from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
-                                           packed_cuda, pyramid_cuda)
+                                           packed_cuda, pyramid_cuda,
+                                           xzdec_cuda)
 
-    return haar_cuda, pyramid_cuda, compact_cuda, packed_cuda
+    return haar_cuda, pyramid_cuda, compact_cuda, packed_cuda, xzdec_cuda
 
 
 def _reset_launches() -> None:
@@ -908,6 +1165,20 @@ def _run_both(data_dir, name, keys, d_keys, steps, res, stats) -> None:
             stats["c"], stats["d"] = cs, ds
 
 
+def _dense_rows_bytes(name: str, res: dict) -> int:
+    """The bytes (``name``)'s dense -d ships for its rows: its link count,
+    or, where its -d decoded members on the card (which ship their xz
+    bytes, not rows), the f32 box bytes of its timesteps (one device,
+    unpacked rows), which the card's members can only lower."""
+    h2d = res["host_to_device_bytes"]
+    if not res["card_decoded_members"]:
+        return h2d
+    if not 0 < h2d <= res["input_bytes"]:
+        raise AssertionError(f"({name}) host_to_device_bytes {h2d} above "
+                             f"its rows' {res['input_bytes']}")
+    return res["input_bytes"]
+
+
 def _finish_config(data_dir, name, steps, bound, same_as, done, opts, res,
                    stats, nbytes) -> dict:
     import numpy as np
@@ -927,6 +1198,10 @@ def _finish_config(data_dir, name, steps, bound, same_as, done, opts, res,
     cs, ds = stats["c"], stats["d"]
     res["device_to_host_bytes"] = cs["device_to_host_bytes"]
     res["host_to_device_bytes"] = ds["host_to_device_bytes"]
+    res["card_decoded_members"] = ds.get("card_decoded_members", 0)
+    if ds.get("card_declined_members", 0):
+        raise AssertionError(f"({name}) -d: the card declined "
+                             f"{ds['card_declined_members']} members")
     if same_as is not None:
         ref = done[same_as]
         if (archives[0] != _tree(os.path.join(WORK, f"{same_as}_arch_cuda"))
@@ -934,10 +1209,12 @@ def _finish_config(data_dir, name, steps, bound, same_as, done, opts, res,
                                                   f"{same_as}_out_cuda"))):
             raise AssertionError(f"({name}) archive or plotfiles differ "
                                  f"from ({same_as})'s")
-        for k in ("device_to_host_bytes", "host_to_device_bytes"):
-            if not 0 < res[k] < ref[k]:
+        for k, limit in (("device_to_host_bytes", ref["device_to_host_bytes"]),
+                         ("host_to_device_bytes", _dense_rows_bytes(same_as,
+                                                                    ref))):
+            if not 0 < res[k] < limit:
                 raise AssertionError(f"({name}) {k} {res[k]} not below "
-                                     f"({same_as})'s {ref[k]}")
+                                     f"({same_as})'s {limit}")
     if "payloads_of" in opts:
         ref = opts["payloads_of"]
         ref_arch = _tree(os.path.join(WORK, f"{ref}_arch_cuda"))
@@ -1275,6 +1552,19 @@ def _summary(r: dict) -> dict:
     return {k: v for k, v in r.items() if k not in ("arch", "out")}
 
 
+def _host_decode_only():
+    """A block whose decodes take no card members (``pipeline/decompress.
+    _card_members`` gives 0): the path a mesh run takes, which decodes on
+    the host alone, so that a run without a mesh launches its kernels once
+    a chunk as each entry of the mesh does."""
+    from unittest import mock
+
+    from wavelet_tpu_torch.pipeline import decompress
+
+    return mock.patch.object(decompress, "_card_members",
+                             lambda *a, **k: (0, 0.0))
+
+
 def run_mesh(data_dir: str) -> dict:
     """(i): the first timestep of (a) and of (c) through the API over a
     two-entry mesh: every batch splits into two row chunks, each run by
@@ -1282,7 +1572,8 @@ def run_mesh(data_dir: str) -> dict:
     (c)'s archive and plotfiles those of the same run without a mesh (a
     one-timestep histogram gives its own threshold), on the card and on
     the CPU (the plain versions); every kernel of the path launches once
-    per chunk, twice per unsplit launch."""
+    per chunk, twice per unsplit launch of the host path (the runs without
+    a mesh take no card members, as a mesh run takes none)."""
     import wavelet_tpu_torch
 
     mesh = _two_entry_mesh()
@@ -1292,11 +1583,12 @@ def run_mesh(data_dir: str) -> dict:
     a = _api_run(data_dir, "i_a", steps, mesh, {"keep": KEEP})
     # the same archive's -d without a mesh: one inverse launch a bucket, or
     # one a chunk of rows where the bucket's decode streams
-    # (pipeline/decompress._stream_rows)
+    # (pipeline/decompress._stream_rows); on the host path, as over a mesh
     _reset_launches()
-    wavelet_tpu_torch.decompress(os.path.join(WORK, "i_a_arch") + os.sep,
-                                 os.path.join(WORK, "i_a_one_out") + os.sep,
-                                 device=DEV)
+    with _host_decode_only():
+        wavelet_tpu_torch.decompress(
+            os.path.join(WORK, "i_a_arch") + os.sep,
+            os.path.join(WORK, "i_a_one_out") + os.sep, device=DEV)
     one = _launches()["haar_inverse"]
     if one < n_buckets:
         raise AssertionError(f"(i, a) {one} unsplit inverse launches for "
@@ -1317,7 +1609,8 @@ def run_mesh(data_dir: str) -> dict:
     c_opts = {"threshold_mode": "global", "keep_fraction": 0.02, "scales": 2}
     cpu = _api_run(data_dir, "i_c_cpu", steps, None, c_opts, device="cpu")
     _expect_launches("i, c, cpu", cpu["launches"], {})
-    one = _api_run(data_dir, "i_c_one", steps, None, c_opts)
+    with _host_decode_only():
+        one = _api_run(data_dir, "i_c_one", steps, None, c_opts)
     c = _api_run(data_dir, "i_c", steps, mesh, c_opts)
     _expect_launches("i, c", c["launches"],
                      {k: 2 * n for k, n in one["launches"].items()})
@@ -1455,11 +1748,11 @@ CHILD = """import json, sys, time
 t0 = time.perf_counter()
 from wavelet_tpu_torch import cli
 from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda,
-                                       packed_cuda, pyramid_cuda)
+                                       packed_cuda, pyramid_cuda, xzdec_cuda)
 from wavelet_tpu_torch.runtime import distributed
 rc = cli.main(sys.argv[1:])
 counts = {}
-for mod in (haar_cuda, pyramid_cuda, compact_cuda, packed_cuda):
+for mod in (haar_cuda, pyramid_cuda, compact_cuda, packed_cuda, xzdec_cuda):
     counts.update(mod.launches)
 print("launches " + json.dumps(counts))
 print("gloo " + json.dumps(distributed.gloo_bytes))
@@ -2127,7 +2420,8 @@ def run_sparse_decompress(name: str, done: dict) -> dict:
     if _tree(out) != _tree(os.path.join(WORK, f"{name}_out_cuda")):
         raise AssertionError(f"({name}) -d transfer=sparse plotfiles differ "
                              "from the dense run's")
-    h2d, ref = ds["host_to_device_bytes"], done[name]["host_to_device_bytes"]
+    h2d = ds["host_to_device_bytes"]
+    ref = _dense_rows_bytes(name, done[name])
     if not 0 < h2d < ref:
         raise AssertionError(f"({name}) -d transfer=sparse shipped {h2d} "
                              f"bytes, not below dense {ref}")
@@ -2136,6 +2430,48 @@ def run_sparse_decompress(name: str, done: dict) -> dict:
             "stages": {k: ds[k] for k in ("decompress_seconds",
                                           "unpack_seconds", "device_seconds",
                                           "write_seconds")}}
+
+
+def run_card_pinned(name: str) -> dict:
+    """(``name``)'s device=cuda archive decompressed on the card with the
+    card's share pinned (``pipeline/decompress._card_members`` patched):
+    half of each streamed bucket's members, the smallest, whatever the
+    rates measured in the process say.  The plotfiles must be that
+    configuration's; ``xzdec`` must launch once a streamed bucket, and
+    decode every pinned member, declining none."""
+    from unittest import mock
+
+    from wavelet_tpu_torch.pipeline import decompress
+
+    pinned = []
+
+    def half(cfg, eng, packer, dims, items, *a, **k):
+        pinned.append(len(items) // 2)
+        return pinned[-1], 0.0
+
+    comp = os.path.join(WORK, f"{name}_arch_cuda") + os.sep
+    out = os.path.join(WORK, f"{name}_out_card") + os.sep
+    _reset_launches()
+    with mock.patch.object(decompress, "_card_members", half):
+        secs, ds = _run_cli([f"compresseddir={comp}", f"out={out}",
+                             "device=cuda", "-d"])
+    launches = _launches()
+    if _tree(out) != _tree(os.path.join(WORK, f"{name}_out_cuda")):
+        raise AssertionError(f"({name}) -d with the card's share pinned: "
+                             "plotfiles differ from the dense run's")
+    if not pinned or launches["xzdec"] != len(pinned):
+        raise AssertionError(f"({name}) -d with the card's share pinned: "
+                             f"{launches['xzdec']} xzdec launches for "
+                             f"{len(pinned)} streamed buckets")
+    got = (ds["card_decoded_members"], ds["card_declined_members"])
+    if got != (sum(pinned), 0):
+        raise AssertionError(f"({name}) -d with the card's share pinned: "
+                             f"(decoded, declined) {got}, expected "
+                             f"({sum(pinned)}, 0)")
+    return {"cuda_decompress_s": secs, "pinned_members": pinned,
+            "card_decoded_bytes": ds["card_decoded_bytes"],
+            "card_decode_seconds": ds["card_decode_seconds"],
+            "launches": launches}
 
 
 def _pair(kern, plain, inp) -> dict:
@@ -2538,6 +2874,7 @@ def kernels_only(device, card: str) -> int:
     data_dir = os.path.join(WORK, "data")
     make_dataset(data_dir)
     rows = main_path_rows(data_dir, device)
+    boxes = main_path_boxes(data_dir)[:XZ_BUCKET]
     shutil.rmtree(WORK, ignore_errors=True)
     err = {**phase_kernels(device), **phase_pyramid_kernels(device),
            **phase_packed_kernels(device),
@@ -2546,6 +2883,8 @@ def kernels_only(device, card: str) -> int:
                + [(f"main path [{TIME_SHAPE[0]}, {rows[0].shape[1]}] "
                    f"cap={rows[2]}", *rows[:3])])}
     print(f"phase 4 ok (max_abs_err {err})")
+    print(f"xz decode on the card ({card}): "
+          + json.dumps(phase_xzdec(device, boxes)))
     print(f"K1/K2 box-size sweep ({card}): "
           + json.dumps(phase_sweep(device)))
     print(f"K3/K4 at P = 64 beside K1/K2 ({card}): "
@@ -2602,6 +2941,11 @@ def main() -> int:
                    f"cap={rows[2]}", *rows[:3])])}
     print(f"phase 4 ok: kernels bitwise equal to plain versions "
           f"(max_abs_err {err})")
+    t0 = time.perf_counter()
+    xz = phase_xzdec(device, main_path_boxes(data_dir))
+    err["xzdec"] = 0.0
+    print(f"xz decode on the card ({card}; "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(xz))
     launches = dict.fromkeys(KERNELS, 0)
     done = {}
     for name, keys, d_keys, steps, expect, bound, same_as, *opts in CONFIGS:
@@ -2619,6 +2963,12 @@ def main() -> int:
         launches[k] += v
     print(f"end to end (c, -d transfer=sparse; {card}; "
           f"{time.perf_counter() - t0:.1f} s): " + json.dumps(sd))
+    t0 = time.perf_counter()
+    pc = run_card_pinned("a")
+    for k, v in pc["launches"].items():
+        launches[k] += v
+    print(f"end to end (a, -d with the card's share pinned; {card}; "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(pc))
     t0 = time.perf_counter()
     f = run_packed_compress(data_dir)
     for run in f.values():
@@ -2678,6 +3028,8 @@ def main() -> int:
           f"plotfile I/O; {card}; {secs:.1f} s): " + json.dumps(res))
     timing = phase_timing(device, rows)
     timing["histogram_passes"] = _hist_timing(device)
+    timing["xzdec"] = {k: xz[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"kernel times at {list(TIME_SHAPE)}, pyramids at scales="
           f"{TIME_SCALES}, compaction on the main path's and bench's rows "

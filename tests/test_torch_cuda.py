@@ -460,3 +460,55 @@ def test_dryrun_multichip_on_the_card(cuda_device):
     out = entry.dryrun_multichip(2)
     assert np.isfinite(out["rmse"])
     assert pyramid_cuda.launches["forward_hist"] > before["forward_hist"]
+
+
+def _xz_members(dims, seeds, kept=0.4):
+    """xz members of smooth-field payloads, with their payloads."""
+    from wavelet_tpu_torch.core import rle
+    from wavelet_tpu_torch.io import archive
+
+    m = int(np.prod(dims))
+    out = []
+    for s in seeds:
+        rng = np.random.default_rng(s)
+        idx = np.sort(rng.choice(m, int(m * kept), replace=False))
+        vals = np.cumsum(rng.standard_normal(len(idx))).astype(np.float32)
+        payload = archive.serialize_payload(dims, rle.rle_encode_pairs(idx),
+                                            vals)
+        out.append((payload, archive.xz_compress(payload)))
+    return out
+
+
+def test_xzdec_matches_plain_and_stdlib(cuda_device):
+    from wavelet_tpu_torch.core import rle
+    from wavelet_tpu_torch.io import archive
+    from wavelet_tpu_torch.kernels import xzdec_cuda
+    from wavelet_tpu_torch.runtime import carddecode
+
+    dims = (16, 16, 16)
+    members = _xz_members(dims, range(5))
+    blobs = [b for _, b in members]
+    bad = bytearray(blobs[1])
+    lay = archive.xz_single_block(blobs[1])
+    bad[lay[0] + lay[1] + (-lay[1] % 4)] ^= 1       # the CRC64
+    blobs[1] = bytes(bad)
+    before = xzdec_cuda.launches["xzdec"]
+    card = carddecode.CardDecode(cuda_device, dims, blobs)
+    card.close()
+    card.finish()
+    assert xzdec_cuda.launches["xzdec"] == before + 1
+    plain = carddecode.CardDecode(torch.device("cpu"), dims, blobs)
+    plain.finish()
+    assert list(card.status) == list(plain.status) == [
+        0, xzdec_cuda.CHECK_ERROR, 0, 0, 0]
+    rows = card.rows.cpu().numpy()
+    assert rows.view(np.int32).tobytes() == \
+        plain.rows.numpy().view(np.int32).tobytes()
+    for j, (payload, _) in enumerate(members):
+        if j == 1:
+            assert not rows[j].any()
+            continue
+        _, total, runs, vals = archive.deserialize_payload(payload)
+        want = rle.rle_decode(runs, vals, total).reshape(dims)
+        assert rows[j].view(np.int32).tobytes() == \
+            want.view(np.int32).tobytes()

@@ -20,7 +20,8 @@ PASSES = [
      "free_seconds": 0.25, "device_seconds": 0.7,
      "unpack_overlap_seconds": 0.5, "global_pass1_seconds": 1.5,
      "global_pass2_seconds": 3.0, "allreduce_seconds": 0.2,
-     "read_seconds": 0.3, "pack_overlap_seconds": 0.4},
+     "read_seconds": 0.3, "pack_overlap_seconds": 0.4,
+     "card_decoded_bytes": 10e6, "card_decode_seconds": 4.0},
     {"pack_seconds": 2.0, "pack_cpu_seconds": 4.0, "xz_in_bytes": 10e6,
      "xz_cpu_seconds": 10.0, "h2d_seconds": 0.1, "launch_seconds": 0.2,
      "d2h_seconds": 0.3, "threshold_seconds": 0.4,
@@ -30,7 +31,8 @@ PASSES = [
      "free_seconds": 0.25, "device_seconds": 0.7,
      "unpack_overlap_seconds": 0.25, "global_pass1_seconds": 0.5,
      "global_pass2_seconds": 1.0, "allreduce_seconds": 0.3,
-     "read_seconds": 0.3, "pack_overlap_seconds": 0.1},
+     "read_seconds": 0.3, "pack_overlap_seconds": 0.1,
+     "card_decoded_bytes": 30e6, "card_decode_seconds": 6.0},
 ]
 EXPECTED = {
     "pack_cores.compress": 16.0 / 4.0,
@@ -55,6 +57,9 @@ EXPECTED = {
     "hist_pass_s_per_gb.global4": 2.0,
     "pack_pass_s_per_gb.global4": 4.0,
     "allreduce_wait_s_per_gb.global4": 0.5,
+    # the card's 40 MB beside the host's 80 MB, over 10 s of its blocks
+    "card_decode_share.regen": 100.0 * 40.0 / 120.0,
+    "card_decode_mb_per_stream_s.regen": 40.0 / 10.0,
 }
 
 

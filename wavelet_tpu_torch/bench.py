@@ -56,7 +56,7 @@ import torch
 
 from wavelet_tpu_torch.core import haar, threshold
 from wavelet_tpu_torch.kernels import (compact_cuda, haar_cuda, packed_cuda,
-                                       pyramid_cuda)
+                                       pyramid_cuda, xzdec_cuda)
 from wavelet_tpu_torch.runtime import engine
 from wavelet_tpu_torch.runtime.mesh import resolve_device
 
@@ -69,7 +69,8 @@ HBM_BYTES_PER_S = 3.35e12
 BASELINE_GBPS = 10.0          # BASELINE.json north star, end to end
 KEEP = 0.999
 COMPACT_THRESHOLD = 2.6       # P(|N(0,1)| > 2.6) ~ 0.93% kept
-_KERNEL_MODULES = (haar_cuda, pyramid_cuda, packed_cuda, compact_cuda)
+_KERNEL_MODULES = (haar_cuda, pyramid_cuda, packed_cuda, compact_cuda,
+                   xzdec_cuda)
 
 
 def median_rep(run_rep, make_x, reps: int, nbytes: int,

@@ -7,7 +7,9 @@ payload, where ``wavelet_tpu``'s Python writer departs from them (and so
 from its own native writer and the C++ tool) on incompressible payloads
 above 64 KiB and on 16,288-16,379-byte payloads under the delta filter;
 and without the delta filter it calls that encoder itself, through
-ctypes, where the system liblzma loads.
+ctypes, where the system liblzma loads.  It also reads that encoder's
+layout (:func:`xz_single_block`) for the members the card decodes
+(``runtime/carddecode``).
 
 Byte-compatible with the reference so either tool can read the other's
 archives (the compatibility contract of SURVEY.md §4.2):
@@ -51,8 +53,8 @@ __all__ = [
     "RunInfo", "AMReXInfo",
     "serialize_payload", "deserialize_payload",
     "serialize_payload_q16", "deserialize_payload_q16",
-    "xz_compress", "xz_decompress", "encode_blob", "decode_blob",
-    "payload_filename",
+    "xz_compress", "xz_decompress", "xz_single_block", "encode_blob",
+    "decode_blob", "payload_filename",
     "write_runinfo", "read_runinfo",
     "write_locdim", "read_locdim",
     "write_boxcounts", "read_boxcounts",
@@ -342,6 +344,92 @@ def _reframe_with_block_sizes(blob: bytes, payload: bytes) -> bytes:
         return blob[:12] + hdr + body + new_idx + footer
     except (IndexError, ValueError):
         return blob
+
+
+def _read_vli(b: bytes, pos: int, end: int):
+    """xz's variable-length integer at ``pos``, or None where it runs past
+    ``end``, past 9 bytes, or ends in a superfluous zero byte."""
+    v = 0
+    for k in range(9):
+        if pos >= end:
+            return None
+        c = b[pos]
+        pos += 1
+        v |= (c & 0x7F) << (7 * k)
+        if not c & 0x80:
+            return (v, pos) if k == 0 or c else None
+    return None
+
+
+# LZMA2's dictionary sizes: property byte d <= 40 -> (2 | d & 1) << (d // 2
+# + 11), and 40 -> 4 GiB - 1
+def _lzma2_dict_size(d: int) -> int:
+    return 0xFFFFFFFF if d == 40 else (2 | (d & 1)) << (d // 2 + 11)
+
+
+def xz_single_block(blob: bytes):
+    """The layout of ``blob`` where it is exactly what liblzma's buffer
+    encoder writes without a delta filter: one stream with a CRC64 check,
+    one block whose header carries both sizes and the LZMA2 filter alone,
+    an uncompressed size no larger than the dictionary, and nothing after
+    the stream footer.  -> ``(data_offset, compressed_size,
+    uncompressed_size, crc64)``, the LZMA2 data and the check its output
+    must meet, with every CRC32 of the container verified; or None for
+    any other blob (the card declines it and :func:`xz_decompress` reads
+    it)."""
+    n = len(blob)
+    if (n < 12 + 8 + 12 or blob[:6] != b"\xfd7zXZ\x00"
+            or blob[6:8] != b"\x00\x04"
+            or zlib.crc32(blob[6:8]) != int.from_bytes(blob[8:12], "little")):
+        return None
+    bhs = (blob[12] + 1) * 4
+    hend = 12 + bhs
+    if blob[12] == 0 or hend > n or blob[13] != 0xC0 or zlib.crc32(
+            blob[12:hend - 4]) != int.from_bytes(blob[hend - 4:hend],
+                                                 "little"):
+        return None
+    fields = []
+    p = 14
+    for _ in range(4):      # compressed, uncompressed, filter id, props size
+        r = _read_vli(blob, p, hend - 4)
+        if r is None:
+            return None
+        v, p = r
+        fields.append(v)
+    comp, unc, fid, nprops = fields
+    if fid != 0x21 or nprops != 1 or p >= hend - 4 or blob[p] > 40:
+        return None
+    dict_size = _lzma2_dict_size(blob[p])
+    if any(blob[p + 1:hend - 4]) or comp == 0 or unc > dict_size:
+        return None
+    pad = -comp % 4
+    check = hend + comp + pad
+    idx = check + 8
+    if idx >= n or any(blob[hend + comp:check]):
+        return None
+    crc64 = int.from_bytes(blob[check:idx], "little")
+    # the index: one record of (unpadded size, uncompressed size)
+    if blob[idx] != 0x00:
+        return None
+    p = idx + 1
+    for want in (1, bhs + comp + 8, unc):
+        r = _read_vli(blob, p, n)
+        if r is None or r[0] != want:
+            return None
+        p = r[1]
+    iend = p + (-(p - idx) % 4)
+    if iend + 4 + 12 != n or any(blob[p:iend]) or zlib.crc32(
+            blob[idx:iend]) != int.from_bytes(blob[iend:iend + 4], "little"):
+        return None
+    foot = iend + 4
+    back = int.from_bytes(blob[foot + 4:foot + 8], "little")
+    if (zlib.crc32(blob[foot + 4:foot + 10]) != int.from_bytes(
+            blob[foot:foot + 4], "little")
+            or (back + 1) * 4 != iend + 4 - idx
+            or blob[foot + 8:foot + 10] != blob[6:8]
+            or blob[foot + 10:] != b"YZ"):
+        return None
+    return hend, comp, unc, crc64
 
 
 def xz_decompress(blob: bytes) -> bytes:

@@ -127,6 +127,10 @@ def _bind(lib) -> None:
     lib.wt_packed_forward_hist.restype = i32
     lib.wt_packed_inverse.argtypes = [vp] * 2 + [i32] * 5 + [vp]
     lib.wt_packed_inverse.restype = i32
+    i64 = ctypes.c_longlong
+    lib.wt_xzdec.argtypes = [vp, i64, vp, vp, i64] + [vp] * 3 + [i32] * 4 \
+        + [vp]
+    lib.wt_xzdec.restype = i32
 
 
 def library():

@@ -40,11 +40,13 @@ import dataclasses
 import logging
 import os
 import time
+import typing
 
 import numpy as np
+import torch
 
 from wavelet_tpu_torch.io import archive, plotfile
-from wavelet_tpu_torch.runtime import batching
+from wavelet_tpu_torch.runtime import batching, carddecode
 from wavelet_tpu_torch.runtime.debug import phase_timer, span
 from wavelet_tpu_torch.pipeline import common
 from wavelet_tpu_torch.runtime import engine
@@ -142,12 +144,100 @@ def _stream_rows(cfg, eng, packer, dims, n_items) -> int:
     return rows if n_items >= 2 * rows else 0
 
 
+def _card_members(cfg, eng, packer, dims, items, sizes, head_s=0.0,
+                  busy_blocks=0):
+    """How many of a streamed bucket's ``items`` (largest first, of stored
+    ``sizes``) the card decodes, from the end
+    (:func:`carddecode.card_count`, the card's launch ``head_s`` seconds
+    ahead of the bucket's host decode, ``busy_blocks`` of its blocks
+    already running), and the host's predicted seconds for the rest (0
+    while its rate is unknown): ``(0, ...)`` off a CUDA device, under a
+    mesh, for ``q16`` or ``codec=raw`` payloads, and where a member is
+    missing (its decode raises on the host reader)."""
+    dev = eng.device
+    if (dev.type != "cuda" or eng.mesh is not None or packer.payload != "f32"
+            or packer.codec != "xz" or 0 in sizes):
+        return 0, 0.0
+    rates = carddecode.RATES
+    card_bps, host_bps = rates.card_bps(dev), rates.host_bps()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k = carddecode.card_count(
+        sizes, host_bps=host_bps, workers=packer.workers, card_bps=card_bps,
+        launch_s=rates.launch_s, head_s=head_s,
+        sms=max(1, sms - busy_blocks))
+    host_s = (carddecode.host_seconds(sizes[:len(sizes) - k], host_bps,
+                                      packer.workers) if host_bps else 0.0)
+    return k, host_s
+
+
+class _CardPlan(typing.NamedTuple):
+    """A streamed bucket's members in row order (largest first) and their
+    stored sizes, the card's launch on their tail (None: the host decodes
+    them all) and the host's predicted seconds for the rest."""
+
+    items: list
+    sizes: list
+    card: object
+    host_s: float
+
+
+def _plan_card(cfg, eng, packer, dims, bucket_items, head_s=0.0,
+               busy_blocks=0) -> _CardPlan:
+    items = packer.largest_first(cfg.compressed_dir, bucket_items)
+    sizes = packer.stored_sizes(cfg.compressed_dir, items)
+    n_card, host_s = _card_members(cfg, eng, packer, dims, items, sizes,
+                                   head_s, busy_blocks)
+    card = None
+    if n_card:
+        card = carddecode.CardDecode(
+            eng.device, dims,
+            packer.read_blobs(cfg.compressed_dir, items[len(items) - n_card:]))
+    return _CardPlan(items, sizes, card, host_s)
+
+
+def _plan_cards(cfg, eng, packer, buckets, planned, head_s=0.0, blocks=0):
+    """:func:`_plan_card` for each streamed bucket of ``buckets`` (``[(dims,
+    items)]``, in the order their host decodes will run) that ``planned``
+    lacks, launched now, each with the host seconds of the buckets before
+    it as its head start, beside ``blocks`` blocks already launched; ->
+    ``planned`` with them, the head start after the last bucket, and the
+    blocks then launched."""
+    planned = dict(planned)
+    blocks += sum(len(p.card.sizes) for p in planned.values() if p.card)
+    for dims, items in buckets:
+        if not _stream_rows(cfg, eng, packer, dims, len(items)):
+            continue
+        if dims not in planned:
+            planned[dims] = _plan_card(cfg, eng, packer, dims, items,
+                                       head_s, blocks)
+            card = planned[dims].card
+            blocks += len(card.sizes) if card else 0
+        head_s += planned[dims].host_s
+    return planned, head_s, blocks
+
+
+def _timestep_buckets(t, num_levels, counts, dimensions, comp_idxs) -> list:
+    """Timestep ``t``'s items by box shape: ``[(dims, items)]``."""
+    buckets = {}
+    for li in range(num_levels):
+        for b in range(counts[t][li]):
+            dims = tuple(dimensions[t][li][b])
+            for comp_idx in comp_idxs:
+                buckets.setdefault(dims, []).append(
+                    batching.WorkItem(t=t, level=li, comp_idx=comp_idx,
+                                      box=b))
+    return list(buckets.items())
+
+
 def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
-                         counts, dimensions, stats, arena=None):
+                         counts, dimensions, stats, arena=None, planned=None,
+                         next_buckets=()):
     """Decode + inverse-transform every box of timestep ``t``.
 
-    Returns ``regen``: [lev][box] -> (C, X, Y, Z) float32 (``(C, X>>p,
-    Y>>p, Z>>p)`` at ``preview=p``), and adds the
+    Returns ``(regen, ahead)``: ``regen`` [lev][box] -> (C, X, Y, Z) float32
+    (``(C, X>>p, Y>>p, Z>>p)`` at ``preview=p``), and ``ahead`` the card
+    plans (:class:`_CardPlan`) launched for ``next_buckets``, the next
+    timestep's buckets, to pass to its call as ``planned``.  It adds the
     host-to-device bytes and the seconds of the host (unpack; span
     ``decompress.unpack``) and device (H2D, inverse kernel, D2H;
     ``decompress.device_step``) stages, and of copying each bucket's
@@ -163,21 +253,28 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
     member's decode; the calling thread's waits for a chunk are spans of
     their own (``decompress.unpack_wait``, ``unpack_wait_seconds``); and
     ``unpack_overlap_seconds`` counts the seconds of its device steps and
-    assembles that ran before its last member had decoded."""
-    buckets = {}
-    for li in range(num_levels):
-        for b in range(counts[t][li]):
-            dims = tuple(dimensions[t][li][b])
-            for comp_idx in comp_idxs:
-                buckets.setdefault(dims, []).append(
-                    batching.WorkItem(t=t, level=li, comp_idx=comp_idx,
-                                      box=b))
+    assembles that ran before its last member had decoded.
+
+    A streamed bucket's smallest members may decode on the card
+    (:func:`_plan_card`, ``runtime/carddecode``): they are its last rows,
+    and once the card has finished they go through the device step from
+    the device (``decompress.card_wait``).  The launches for this
+    timestep's buckets that ``planned`` lacks, and then for
+    ``next_buckets``, happen before any host decode starts: the next
+    timestep's card members decode beside this timestep's host decode,
+    with its predicted seconds as their head start."""
     comp_pos = {c: k for k, c in enumerate(comp_idxs)}
     ncomp = len(comp_idxs)
     regen = [[None] * counts[t][li] for li in range(num_levels)]
-    order = list(buckets.items())
+    order = _timestep_buckets(t, num_levels, counts, dimensions, comp_idxs)
     chunk_rows = [_stream_rows(cfg, eng, packer, dims, len(items))
                   for dims, items in order]
+    # launched before any pool starts: their reads and staging on this
+    # thread would wait for the cores the pools take
+    planned, head_s, blocks = _plan_cards(cfg, eng, packer, order,
+                                          planned or {})
+    ahead, _, _ = _plan_cards(cfg, eng, packer, next_buckets, {}, head_s,
+                              blocks)
 
     def host_stage(j):
         if chunk_rows[j]:
@@ -200,6 +297,8 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
             else:
                 if kind == "sparse":
                     out = eng.decompress_shapebatch_sparse(*payload)
+                elif kind == "card":
+                    out = eng.decompress_device_rows(*payload)
                 else:
                     out = eng.decompress_shapebatch(payload)
                 out_dims = dims
@@ -214,38 +313,93 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
                 regen[it.level][it.box][comp_pos[it.comp_idx]] = item(i)
         return step, assemble
 
+    def card_rows(batch, card, lo, hi):
+        """The card's rows ``[lo, hi)`` of ``batch``, once it has
+        finished: the members it declined decode on the host reader into
+        ``batch`` (raising its own ``ValueError`` on a corrupt member) and
+        are copied into its rows; a member of the encoder's layout whose
+        data or check the card rejected and the host reader decoded raises
+        (:meth:`carddecode.CardDecode.kernel_faults`).  -> (the rows, the
+        ``perf_counter`` at which the last of them decoded)."""
+        rows = card.wait(stats)
+        declined = [lo + i for i in np.flatnonzero(card.status)]
+        if not declined:
+            return rows, card.done
+        with packer.unpack_stream(cfg.compressed_dir, batch,
+                                  [(i, i + 1) for i in declined]) as host:
+            for i, _ in host:
+                rows[i - lo].copy_(torch.from_numpy(batch.data[i]))
+        faults = card.kernel_faults()
+        if faults:
+            raise RuntimeError(
+                "xzdec rejected members that the host reader decodes: "
+                + ", ".join(f"{batch.items[lo + j]} (status "
+                            f"{int(card.status[j])})" for j in faults))
+        return rows, max(card.done, host.decoded)
+
     def stream_stage(j):
         dims, bucket_items = order[j]
         rows = chunk_rows[j]
         t0 = time.perf_counter()
         busy = []
+        decoded = []
         with contextlib.ExitStack() as decoding:
             decoding.enter_context(span("decompress.unpack",
                                         args=(*dims, len(bucket_items))))
+            items, sizes, card, _ = planned[dims]
             batch = batching.empty_batch(
-                packer.largest_first(cfg.compressed_dir, bucket_items),
-                dims, pad_multiple=eng.pad_multiple_for(dims),
+                items, dims, pad_multiple=eng.pad_multiple_for(dims),
                 layout=eng.coeff_layout(dims), scales=eng.eff_scales(dims),
                 arena=arena)
-            n_rows = batch.data.shape[0]
-            bounds = [(lo, min(lo + rows, n_rows))
-                      for lo in range(0, n_rows, rows)]
+            # the card takes the smallest members: the bucket's last rows
+            n_card = len(card.sizes) if card else 0
+            n_host = batch.data.shape[0] - n_card
+            bounds = [(lo, min(lo + rows, n_host))
+                      for lo in range(0, n_host, rows)]
+            if card is not None:
+                decoding.callback(card.close)
+                h2d_card = card.h2d_bytes
+            t_pool = time.perf_counter()
             stream = decoding.enter_context(packer.unpack_stream(
                 cfg.compressed_dir, batch, bounds))
-            for k in range(len(bounds)):
-                with span("decompress.unpack_wait", stats,
-                          "unpack_wait_seconds"):
-                    lo, hi = next(stream)
-                if k == len(bounds) - 1:
+            steps = len(bounds) + (card is not None)
+            host_left = len(bounds)
+            for k in range(steps):
+                # the card's rows as soon as it has finished, between host
+                # chunks; else after the last
+                if card is not None and (not host_left or card.ready()):
+                    lo, hi = n_host, len(items)
+                    on_card, done = card_rows(batch, card, lo, hi)
+                    decoded.append(done)
+                    card = None
+                else:
+                    with span("decompress.unpack_wait", stats,
+                              "unpack_wait_seconds"):
+                        lo, hi = next(stream)
+                    host_left -= 1
+                    on_card = None
+                if k == steps - 1:
                     decoding.close()    # every member has decoded
-                items = batch.items[lo:hi]
+                part_items = batch.items[lo:hi]
                 part = dataclasses.replace(batch, data=batch.data[lo:hi],
-                                           items=items, n_valid=len(items))
-                busy += device_stage(dims, items,
-                                     ("dense", part, part.data.nbytes))
-        stats["unpack_seconds"] += stream.decoded - t0
+                                           items=part_items,
+                                           n_valid=len(part_items))
+                busy += device_stage(
+                    dims, part_items,
+                    ("dense", part, part.data.nbytes) if on_card is None
+                    else ("card", (part, on_card), h2d_card))
+        end = max([stream.decoded] + decoded)
+        stats["unpack_seconds"] += end - t0
+        # the host's rate a core as its pool delivered it, for the card's
+        # share of later buckets: stored bytes over the pool's wall times
+        # the workers it kept
+        n_pool = len(items) - n_card
+        if n_pool:
+            carddecode.RATES.add_host(
+                sum(sizes[:n_pool]),
+                (stream.decoded - t_pool) * min(packer.workers, n_pool))
         stats["unpack_overlap_seconds"] += sum(
-            max(0.0, min(sp.start + sp.seconds, stream.decoded) - sp.start)
+            max(0.0, min(sp.start + sp.seconds, end) - sp.start)
             for sp in busy)
         return batch
 
@@ -276,7 +430,7 @@ def _decompress_timestep(cfg, eng, packer, comp_idxs, t, num_levels,
     else:
         for j in range(len(order)):
             run(j, host_stage(j))
-    return regen
+    return regen, ahead
 
 
 def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
@@ -429,16 +583,23 @@ def iter_decompressed_timesteps(cfg: common.Config, mesh=None, stats=None):
     stats.setdefault("device_seconds", 0.0)
     stats.setdefault("assemble_seconds", 0.0)
     stats.setdefault("unpack_overlap_seconds", 0.0)
-    for t in sel_times:
+    for key in ("card_decoded_members", "card_decoded_bytes",
+                "card_declined_members", "card_decode_seconds"):
+        stats.setdefault(key, 0)
+    planned = {}        # the card's launches for the next timestep
+    for i, t in enumerate(sel_times):
         # timestep boundary: the link is quiescent here (the prefetch
         # worker only writes plotfiles), so a stale transfer=auto probe
         # can re-run without measuring the pipeline's own transfers
         arena.new_generation()
         if cfg.transfer == "auto":
             engine.CodecEngine.reprobe_link_if_stale()
-        regen = _decompress_timestep(cfg, eng, packer, comp_idxs, t,
-                                     num_levels, counts, dimensions, stats,
-                                     arena=arena)
+        nxt = (_timestep_buckets(sel_times[i + 1], num_levels, counts,
+                                 dimensions, comp_idxs)
+               if i + 1 < len(sel_times) else ())
+        regen, planned = _decompress_timestep(
+            cfg, eng, packer, comp_idxs, t, num_levels, counts, dimensions,
+            stats, arena=arena, planned=planned, next_buckets=nxt)
         if owned_times is not None and t not in owned_times:
             # decoded only to take part in the giant inverse; the gate is
             # here so that no consumer of this iterator writes another

@@ -896,6 +896,21 @@ class CodecEngine:
         return ShapeBatch(shape=dims, data=self._cat(outs),
                           items=batch.items, n_valid=batch.n_valid)
 
+    def decompress_device_rows(self, coeff_batch: ShapeBatch,
+                               rows: torch.Tensor) -> ShapeBatch:
+        """:meth:`decompress_shapebatch` of rows that already lie on the
+        engine's device (one box a row, the card's decode of a streamed
+        bucket's tail): no H2D, the inverse kernel, D2H."""
+        self._check_batch(coeff_batch)
+        if coeff_batch.pack != 1 or self.mesh is not None or \
+                self.giant_ok(coeff_batch.shape):
+            raise NotImplementedError(
+                "device rows take one box a row on one device")
+        eff = self.eff_scales(coeff_batch.shape)
+        with span("engine.launch", self.stats, "launch_seconds"):
+            out = [self._inverse_dev(rows, eff)]
+        return dataclasses.replace(coeff_batch, data=self._cat(out))
+
     def decompress_batch(self, flat: np.ndarray, dims) -> np.ndarray:
         """flat f32 [N, X*Y*Z] -> boxes f32 [N, X, Y, Z]."""
         dims = tuple(int(d) for d in dims)
@@ -1171,25 +1186,34 @@ class HostPacker:
                                 [(0, len(batch.items))]) as stream:
             list(stream)
 
-    def largest_first(self, in_dir: str, items) -> list:
-        """``items`` by their stored member's size, largest first (ties in
-        the given order), read from the bundle index or the file system
-        without reading a member; a member that is missing counts 0 (its
-        decode raises as ever)."""
+    def stored_sizes(self, in_dir: str, items) -> list:
+        """Each of ``items``' stored member's size, read from the bundle
+        index or the file system without reading a member; a member that
+        is missing counts 0 (its decode raises as ever)."""
         if self.archive_format == "bundle":
             bs = self._bundle_set(in_dir)
             locs = [bs.locate(it.t, it.level, it.comp_idx, it.box)
                     for it in items]
-            sizes = [loc[2] if loc else 0 for loc in locs]
-        else:
-            sizes = []
-            for path in self._paths(in_dir, items):
-                try:
-                    sizes.append(os.path.getsize(path))
-                except OSError:
-                    sizes.append(0)
+            return [loc[2] if loc else 0 for loc in locs]
+        sizes = []
+        for path in self._paths(in_dir, items):
+            try:
+                sizes.append(os.path.getsize(path))
+            except OSError:
+                sizes.append(0)
+        return sizes
+
+    def largest_first(self, in_dir: str, items) -> list:
+        """``items`` by their stored member's size (:meth:`stored_sizes`),
+        largest first, ties in the given order."""
+        sizes = self.stored_sizes(in_dir, items)
         order = sorted(range(len(items)), key=lambda i: -sizes[i])
         return [items[i] for i in order]
+
+    def read_blobs(self, in_dir: str, items) -> list:
+        """The stored members of ``items``, read on the calling thread."""
+        read = self._reader(in_dir, items)
+        return [read(i) for i in range(len(items))]
 
     def unpack_stream(self, in_dir: str, batch: ShapeBatch,
                       bounds) -> "UnpackStream":
@@ -1205,6 +1229,20 @@ class HostPacker:
                              .reshape(dims))
         return self._decode(in_dir, batch.items, dims, bounds, scatter)
 
+    def _reader(self, in_dir: str, items):
+        """``read(i)`` -> member ``i``'s stored bytes (a bundle's located
+        here, a file's read when called)."""
+        if self.archive_format == "bundle":
+            bs = self._bundle_set(in_dir)
+            return [bs.blob(it.t, it.level, it.comp_idx, it.box)
+                    for it in items].__getitem__
+        paths = self._paths(in_dir, items)
+
+        def read(i):
+            with open(paths[i], "rb") as f:
+                return f.read()
+        return read
+
     def _decode(self, in_dir: str, items, dims, bounds,
                 use) -> "UnpackStream":
         """Every member of ``items`` read (a bundle's here, files on the
@@ -1213,17 +1251,7 @@ class HostPacker:
         vals)``, on an :class:`UnpackStream` over ``bounds``."""
         dims = tuple(dims)
         m = int(np.prod(dims))
-        if self.archive_format == "bundle":
-            bs = self._bundle_set(in_dir)
-            blobs = [bs.blob(it.t, it.level, it.comp_idx, it.box)
-                     for it in items]
-            read = blobs.__getitem__
-        else:
-            paths = self._paths(in_dir, items)
-
-            def read(i):
-                with open(paths[i], "rb") as f:
-                    return f.read()
+        read = self._reader(in_dir, items)
         deserialize = (archive.deserialize_payload_q16
                        if self.payload == "q16"
                        else archive.deserialize_payload)
